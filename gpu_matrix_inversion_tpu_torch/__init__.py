@@ -2,14 +2,18 @@
 
 The JAX package beside it is the reference; each module here has exactly
 one counterpart there, and the tests hold the two against each other. This
-first slice carries the shipped product call ``matrix_inv_32`` end to end:
+port carries:
 
 - the flat-vector API (``api.py``) and the ``Res`` bench records;
-- ``inverse`` with the ``auto``, ``spec``, ``fused`` and ``blocked`` routes
-  (``models/solver.py``);
-- the fused route through kernel K1 (``csrc/fused_gj.cu``) and the blocked
-  route through kernel K2 (``csrc/panel_factor.cu``) plus FP32 GEMMs and a
-  Newton-Schulz polish.
+- ``inverse`` with the ``auto``, ``spec``, ``fused``, ``blocked`` and
+  ``lu`` routes, and ``solve`` (``models/solver.py``);
+- the fused route through kernel K1 (``csrc/fused_gj.cu``); the blocked
+  route through kernel K2 (``csrc/panel_factor.cu``), or past its gate
+  the split path through K3 (the pivot search) and K4
+  (``csrc/small_inv.cu``), plus GEMMs and a Newton-Schulz polish; FP64
+  through K3's f32-search tier or the plain logical panel;
+- the LU route (getrf through K3 and K5, ``csrc/small_lu.cu``; getri by
+  triangular inversion), ``det`` and ``slogdet`` (``ops/lu.py``).
 
 The kernels are CUDA C++ for ``sm_90a``, built with ``nvcc`` on first use
 (``utils/cuda_build.py``); importing the package builds nothing. Every
@@ -31,7 +35,9 @@ from gpu_matrix_inversion_tpu_torch.api import (
 )
 from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
     gauss_jordan_inverse)
-from gpu_matrix_inversion_tpu_torch.models.solver import inverse
+from gpu_matrix_inversion_tpu_torch.ops.lu import (det, invert_triangular,
+                                                   slogdet)
+from gpu_matrix_inversion_tpu_torch.models.solver import inverse, solve
 
 __version__ = "0.1.0"
 
@@ -46,6 +52,10 @@ __all__ = [
     "no_pivots_bench",
     "matrix_multiply",
     "gauss_jordan_inverse",
+    "det",
+    "slogdet",
+    "invert_triangular",
     "inverse",
+    "solve",
     "__version__",
 ]

@@ -6,28 +6,35 @@ routes to
 - ``spec``     plain-torch Gauss-Jordan (executable spec; any device)
 - ``fused``    kernel K1, the whole [A|I] system in one launch per batch
                (small N and batched workloads)
-- ``blocked``  blocked Gauss-Jordan: kernel K2 per panel + FP32 GEMMs
+- ``blocked``  blocked Gauss-Jordan: panel kernels (K2, or K3 + K4 on the
+               split path) + GEMMs; fp64 through K3's f32-search tier
+- ``lu``       LU factorization (K3 + K5) + getri, and :func:`solve`'s
+               triangular solves
 
 ``auto`` picks by shape with the reference's thresholds, unchanged, so
 both packages take the same route on the same input: batched or small
 fp32/bf16 matrices go to ``fused``, large ones to ``blocked``, small FP64
-ones to ``spec``. The reference's ``lu``, ``cholesky``, ``ns`` and
-``sharded`` routes are not ported yet and raise ``NotImplementedError``.
+ones to ``spec``; :func:`solve` takes the LU route from n = 512. The
+reference's ``cholesky``, ``ns`` and ``sharded`` routes are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gpu_matrix_inversion_tpu_torch.ops import lu as lu_ops
 from gpu_matrix_inversion_tpu_torch.ops.blocked import blocked_inverse
 from gpu_matrix_inversion_tpu_torch.ops.fused import (FUSED_MAX_N,
                                                       fused_inverse)
 from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
     gauss_jordan_inverse)
+from gpu_matrix_inversion_tpu_torch.ops.refine import refine_solve
+from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
 
 METHODS = ("auto", "spec", "fused", "blocked", "lu", "cholesky", "sharded",
            "ns")
-_NOT_PORTED = ("lu", "cholesky", "sharded", "ns")
+_NOT_PORTED = ("cholesky", "sharded", "ns")
 _BLOCKED_MIN_N = 512
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -82,4 +89,60 @@ def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
         if search_bf16 is not None:
             kwargs["search_bf16"] = search_bf16
         return blocked_inverse(a, pivot=pivot, **kwargs)
+    if resolved == "lu":
+        # Blocked getrf + getri where panel GEMMs pay off; the spec's
+        # loops for small systems (solver.py:123-129).
+        if a.shape[-1] >= 256:
+            return lu_ops.lu_inverse_fast(a)
+        return lu_ops.lu_inverse(a)
     return gauss_jordan_inverse(a, pivot=pivot)
+
+
+def solve(a: torch.Tensor, b: torch.Tensor, *, method: str = "auto",
+          pivot: bool = True, block_size: int | None = None,
+          refine_iters: int = 0):
+    """Solve ``A @ x = b`` on ``a``'s device; returns ``(x, ok)``. ``b`` may
+    be ``(..., n, k)`` or a single right-hand side ``(..., n)``.
+
+    The LU route (``method="lu"``, or ``"auto"`` from n = 512) factors and
+    runs forward/back substitution; the other methods form the explicit
+    inverse and multiply. ``refine_iters`` applies iterative refinement
+    reusing the factorization or the inverse (O(n^2 k) per iteration).
+    ``method="cholesky"`` is not ported yet and raises.
+    """
+    if not isinstance(a, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(a).__name__}")
+    b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    vec = b.ndim == a.ndim - 1          # a single right-hand side
+    if vec:
+        b = b[..., None]
+    if method == "cholesky":
+        raise NotImplementedError(
+            "method='cholesky' is not ported yet (ROADMAP Queue 1)")
+    n = a.shape[-1]
+    if method == "lu" or (method == "auto" and n >= _BLOCKED_MIN_N):
+        if n >= 256:
+            kwargs = {} if block_size is None else {"block_size": block_size}
+            lu, perm, ok_f = lu_ops.lu_factor_blocked(a, pivot=pivot,
+                                                      **kwargs)
+            x, ok_s = lu_ops.lu_solve_fast(lu, perm, b)
+        else:
+            lu, perm, ok_f = lu_ops.lu_factor(a, pivot=pivot)
+            x, ok_s = lu_ops.lu_solve(lu, perm, b)
+        ok = ok_f & ok_s
+        if refine_iters > 0:
+            x = refine_solve(a, b, x, lu, perm, iters=refine_iters)
+    else:
+        inv, ok = inverse(a, method=method, pivot=pivot,
+                          block_size=block_size)
+        with matmul_precision("highest"):
+            x = inv @ b
+            for _ in range(refine_iters):
+                # Each correction reuses the inverse: one residual GEMM
+                # and one apply.
+                x = x + inv @ (b - a @ x)
+    if refine_iters > 0:
+        ok = ok & torch.isfinite(x).all(dim=(-2, -1))
+    if vec:
+        x = x[..., 0]
+    return x, ok

@@ -1,16 +1,27 @@
-"""Blocked right-looking Gauss-Jordan: kernel K2 plus FP32 GEMM updates.
+"""Blocked right-looking Gauss-Jordan: panel kernels plus GEMM updates.
 
 Port of ``gpu_matrix_inversion_tpu/ops/blocked.py``, the large-N route. The
 reference's ``fixColumnKernel`` performs the O(N^2) rank-1 trailing update
 once per iteration, N times (``matrix_inversion_FP32.cpp:17-63``). Here the
 same elimination is regrouped panel by panel:
 
-1. *Panel factorization* (K2, ``csrc/panel_factor.cu``, one launch per
-   panel): b swap-free packed-key pivot steps on the transposed (b, m)
-   strip under the cross-panel used-row mask, emitting the pivot rows and
-   the panel's composite transform C^T, such that X + C @ X[pivrows]
-   eliminates the panel from any columns X and deposits its scaled pivot
-   rows.
+1. *Panel factorization*: the pivot rows of the (m, b) strip and the
+   panel's composite transform C^T, such that X + C @ X[pivrows] eliminates
+   the panel from any columns X and deposits its scaled pivot rows. Four
+   routes, chosen as the reference chooses them (``_factor_panel``):
+
+   - fp32 within ``_emit_fused``: kernel K2 (``csrc/panel_factor.cu``)
+     emits both in one launch;
+   - fp32 past it (n > 16384, or ``search_bf16=True``), the split path:
+     kernel K3 (K2's steps, on an fp32 or bf16 strip) gives the pivot
+     rows, kernel K4 (``csrc/small_inv.cu``) inverts the (b, b) pivot
+     block, and one GEMM assembles C from it;
+   - fp64 where the f32 search reaches (b*m <= 128*8192), the f32-search
+     tier: K3 on the strip cast to fp32, the pivot block inverted in fp64
+     by the plain spec;
+   - everything else (fp64 past that, fp64 without pivoting, fp32 past
+     m = 65536): the plain logical panel, as the reference runs it
+     without a Pallas kernel.
 2. *Group composites*: ``group`` consecutive panels are factored against an
    [O | G] working set (O = the group's columns, G = identity-probe columns
    injected panel by panel); afterwards G - E^T is the group's composite
@@ -20,15 +31,14 @@ same elimination is regrouped panel by panel:
    the trailing GEMMs touch half the columns of the classic [A | I] layout,
    and two gathers at the very end put the inverse in order.
 
-The GEMMs (the outer rank-gw update and the internal rank-b panel updates)
-are products the JAX package leaves to XLA outside any Pallas kernel; here
-they are library GEMMs that update the ``aug`` / ``og`` buffers (see
-:func:`_update` for their precision). What the reference runs
-only to steer XLA:TPU and Mosaic (optimization barriers, x64 scopes, the
-v1/v2 kernel split, group-loop unrolling, the (8, m) used tile, interpret
-mode) has no counterpart. Where the reference would leave this slice (the
-split K3 + K4 path, the FP64 f32-search tier, lockstep batching) the port
-raises ``NotImplementedError`` instead of taking another route.
+The GEMMs (the outer rank-gw update, the internal rank-b panel updates and
+the split path's C assembly) are products the JAX package leaves to XLA
+outside any Pallas kernel; here they are library GEMMs (see :func:`_mm` for
+their precision). What the reference runs only to steer XLA:TPU and Mosaic
+(optimization barriers, x64 scopes, the v1/v2 kernel split, group-loop
+unrolling, the (8, m) used tile, interpret mode) has no counterpart.
+Lockstep batching (kernel K6) is not ported yet and raises
+``NotImplementedError`` instead of taking another route.
 """
 
 from __future__ import annotations
@@ -37,8 +47,10 @@ import os
 
 import torch
 
-from gpu_matrix_inversion_tpu_torch.ops.fused import (_fms, _packed_argmax,
+from gpu_matrix_inversion_tpu_torch.ops.fused import (SHARED_BYTES, _fms,
+                                                      _packed_argmax,
                                                       _round_up)
+from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import _gauss_jordan_aug
 from gpu_matrix_inversion_tpu_torch.ops.refine import newton_schulz_refine
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
 from gpu_matrix_inversion_tpu_torch.utils.precision import (PRECISIONS,
@@ -69,9 +81,9 @@ def _factor_geometry(m: int, b: int):
 
 def _emit_fused(m: int, b: int, use_kernels: bool, search_bf16: bool) -> bool:
     """Where the fused panel-factor kernel serves (blocked.py:447-458):
-    b*m <= 128*8192, fp32 search. Past it the reference takes the split
-    search + small-inverse path (K3 + K4), which this port does not have
-    yet."""
+    b*m <= 128*8192, fp32 search. Past it the split search + small-inverse
+    path (K3 + K4) takes over: a bf16 C^T would put ~1e-3 into every
+    value-carrying GEMM, not just the pivot choice."""
     return use_kernels and not search_bf16 and b * m <= 128 * 8192
 
 
@@ -97,7 +109,9 @@ def _select_block_params(n: int, block_size: int, dtype,
                          search_bf16: bool):
     """Size gating (blocked.py:842-878); returns (b, use_kernels,
     search_bf16). fp32 keeps b = 128 to m = 8192 and b = 64 to m = 16384;
-    past that the reference searches in bf16 (not ported)."""
+    past that the search runs on bf16 strips, b = 32 from m = 32768, and
+    past m = 65536 the plain logical panel takes over (the reference warns
+    there; this port does not)."""
     b = min(block_size, max(_round_up(n, 8), 8))
     use_kernels = dtype in _KERNEL_DTYPES
     if not use_kernels:
@@ -151,23 +165,39 @@ def effective_gemm_flops(n: int, *, block_size: int = DEFAULT_BLOCK_SIZE,
 
 
 # --------------------------------------------------------------------------
-# K2: panel factorization
+# K2 and K3: the panel kernels
 # --------------------------------------------------------------------------
 
 
-def panel_factor_twin(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
-                      pivot: bool):
-    """Plain PyTorch twin of K2: same steps, same pivot rule, on the input's
-    device. Returns ``(pivrows (b,) int32, ct (b, m) fp32, ok 0-dim bool)``.
+def _panel_twin(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
+                pivot: bool, emit_ct: bool):
+    """Plain PyTorch twin of K2 (``emit_ct``) and K3: same steps, same
+    pivot rule, on the input's device.
 
-    The elimination rounds as the kernel's fmaf does; the deferred second
-    dot is a ``torch.matmul``, so its summation order (and only that)
-    differs from the kernel's FMA loop.
+    An fp32 strip rounds as the kernels' fmaf does; a bf16 strip computes
+    in fp32 and rounds every operation to bf16, as the TPU kernel's bf16
+    code does under XLA's CPU backend (values are held in fp32 tensors
+    that carry bf16 values). The deferred second dot is a ``torch.matmul``,
+    so its summation order (and only that) differs from the kernels' FMA
+    loop. Returns ``(pivrows, ct, ok)`` with ``emit_ct``, else ``pivrows``.
     """
     b, m = stripT.shape
     dev = stripT.device
     sub, kmask = _factor_geometry(m, b)
-    ct = stripT.clone()          # the output doubles as the working buffer
+    if stripT.dtype == torch.float32:
+        def rnd(x):
+            return x
+
+        def elim(x, n, f):
+            return _fms(x, n, f)
+    else:
+        def rnd(x):
+            return x.to(stripT.dtype).float()
+
+        def elim(x, n, f):
+            return rnd(x - rnd(n * f))
+    # The output doubles as the working buffer.
+    ct = stripT.to(torch.float32, copy=True)
     used = used != 0             # a local copy: the caller owns the mask
     pivrows = torch.empty(b, dtype=torch.int32, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
@@ -184,29 +214,72 @@ def panel_factor_twin(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
             used[p] = True
             pivrows[r0 + r2] = p
             pivcol = wp[:, p].clone()
-            pivcol[sub + r2] += 1.0      # the probe's identity one-hot
+            # The probe's identity one-hot.
+            pivcol[sub + r2] = rnd(pivcol[sub + r2] + 1.0)
             pv = pivcol[r2]
             ok &= pv != 0
-            norm = pivcol / torch.where(pv == 0, torch.ones_like(pv), pv)
+            norm = rnd(pivcol / torch.where(pv == 0, torch.ones_like(pv), pv))
             factors = col.clone()
             factors[p] = 0.0
-            wp = _fms(wp, norm[:, None], factors[None, :])
+            wp = elim(wp, norm[:, None], factors[None, :])
             wp[:, p] = norm
             col = wp[r2 + 1].clone()
         lanes = pivrows[r0:r0 + sub].long()
         ctl = wp[sub:].clone()
-        ctl[torch.arange(sub, device=dev), lanes] -= 1.0   # probe - psel
-        rest = torch.cat([torch.arange(0, r0, device=dev),
-                          torch.arange(r0 + sub, b, device=dev)])
+        diag = torch.arange(sub, device=dev)
+        ctl[diag, lanes] = rnd(ctl[diag, lanes] - 1.0)      # probe - psel
+        rest = torch.arange(r0 + sub, b, device=dev)
+        if emit_ct:
+            rest = torch.cat([torch.arange(0, r0, device=dev), rest])
         if rest.numel():
             # Deferred rank-sub update: rows @ psel^T picks the rows'
             # values at the pivot lanes; then rows += g @ C_l^T in FP32.
             x = ct[rest]
             with matmul_precision("highest"):
-                ct[rest] = x + x[:, lanes] @ ctl
-        ct[r0:r0 + sub] = ctl
+                ct[rest] = rnd(x + rnd(x[:, lanes] @ ctl))
+        if emit_ct:
+            ct[r0:r0 + sub] = ctl
+    if not emit_ct:
+        return pivrows
     ok &= torch.isfinite(ct).all()
     return pivrows, ct, ok
+
+
+def panel_factor_twin(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
+                      pivot: bool):
+    """Plain twin of K2: ``(pivrows (b,) int32, ct (b, m) fp32, ok)``."""
+    return _panel_twin(stripT, kb, used, pivot=pivot, emit_ct=True)
+
+
+def pivot_search_twin(stripT: torch.Tensor, used: torch.Tensor):
+    """Plain twin of K3: the (b,) int32 pivot rows."""
+    return _panel_twin(stripT, 0, used, pivot=True, emit_ct=False)
+
+
+def _check_panel_inputs(name: str, stripT: torch.Tensor, used: torch.Tensor,
+                        dtypes) -> None:
+    if stripT.ndim != 2 or stripT.dtype not in dtypes:
+        raise TypeError(f"{name} takes a (b, m) {'/'.join(map(str, dtypes))}"
+                        f" strip, got {tuple(stripT.shape)} {stripT.dtype}")
+    m = stripT.shape[1]
+    if used.shape != (m,) or used.dtype != torch.int32:
+        raise TypeError(f"{name} takes an ({m},) int32 used mask, got "
+                        f"{tuple(used.shape)} {used.dtype}")
+    if used.device != stripT.device:
+        raise ValueError("strip and used mask must share a device")
+    if not (stripT.is_contiguous() and used.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous inputs")
+    if stripT.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda (or its twin on cpu), not "
+                         f"{stripT.device}")
+
+
+def _panel_smem_bytes(m: int, b: int, sub: int, elt: int) -> int:
+    """Shared memory of the panel kernel (``smem_bytes`` in
+    ``csrc/panel_factor.cu``): the search column, the gathered pivot-lane
+    values, the normalized column, lanes, reduction scratch, used flags."""
+    return (_round_up(m * elt, 16) + ((b - sub) * sub + 2 * sub) * 4
+            + (16 + 40) * 4 + m)
 
 
 def panel_factor(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
@@ -219,24 +292,12 @@ def panel_factor(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
     :func:`panel_factor_twin`. A CUDA tensor launches the kernel; a CPU
     tensor takes the twin.
     """
-    if stripT.ndim != 2 or stripT.dtype != torch.float32:
-        raise TypeError(f"K2 takes a (b, m) float32 strip, got "
-                        f"{tuple(stripT.shape)} {stripT.dtype}")
+    _check_panel_inputs("K2", stripT, used, (torch.float32,))
     b, m = stripT.shape
-    if used.shape != (m,) or used.dtype != torch.int32:
-        raise TypeError(f"K2 takes an ({m},) int32 used mask, got "
-                        f"{tuple(used.shape)} {used.dtype}")
-    if used.device != stripT.device:
-        raise ValueError("strip and used mask must share a device")
-    if not (stripT.is_contiguous() and used.is_contiguous()):
-        raise ValueError("K2 needs contiguous inputs")
     if not 0 <= kb <= m - b:
         raise ValueError(f"kb={kb} outside [0, {m - b}]")
     if stripT.device.type == "cpu":
         return panel_factor_twin(stripT, kb, used, pivot=pivot)
-    if stripT.device.type != "cuda":
-        raise ValueError(f"K2 runs on cuda (or its twin on cpu), not "
-                         f"{stripT.device}")
     sub, kmask = _factor_geometry(m, b)
     lib = cuda_build.load()
     dev = stripT.device
@@ -256,50 +317,242 @@ def panel_factor(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
 panel_factor.launches = 0
 
 
+def pivot_search(stripT: torch.Tensor, used: torch.Tensor):
+    """K3 (``csrc/panel_factor.cu``, pivot search): the (b,) int32 pivot
+    rows of one panel.
+
+    ``stripT`` is the (b, m) strip, transposed, in fp32 or bf16; ``used``
+    the (m,) int32 cross-panel mask, read only. A CUDA tensor launches the
+    kernel; a CPU tensor takes :func:`pivot_search_twin`. The kernel keeps
+    the search column and the used flags in one block's shared memory,
+    which serves m up to about 77000 in bf16 and 46000 in fp32 (the gates
+    ask at most 65536 of bf16 and 16384 of fp32); past that it raises.
+    """
+    _check_panel_inputs("K3", stripT, used, _KERNEL_DTYPES)
+    b, m = stripT.shape
+    if stripT.device.type == "cpu":
+        return pivot_search_twin(stripT, used)
+    sub, kmask = _factor_geometry(m, b)
+    smem = _panel_smem_bytes(m, b, sub, stripT.element_size())
+    if smem > SHARED_BYTES:
+        raise ValueError(f"K3 at m={m}, b={b} ({stripT.dtype}) needs {smem} "
+                         f"bytes of shared memory, more than one block's "
+                         f"{SHARED_BYTES}")
+    lib = cuda_build.load()
+    dev = stripT.device
+    pivrows = torch.empty(b, dtype=torch.int32, device=dev)
+    w = torch.empty_like(stripT)
+    wp = torch.empty((2 * sub, m), dtype=stripT.dtype, device=dev)
+    err = lib.matinv_pivot_search(
+        stripT.data_ptr(), used.data_ptr(), pivrows.data_ptr(), w.data_ptr(),
+        wp.data_ptr(), m, b, sub, kmask, int(stripT.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "K3 pivot_search")
+    pivot_search.launches += 1
+    return pivrows
+
+
+pivot_search.launches = 0
+
+
 # --------------------------------------------------------------------------
-# Blocked driver
+# K4: the split path's pivot-block inverse
 # --------------------------------------------------------------------------
+
+
+def invert_small_twin(d: torch.Tensor, *, pivot: bool):
+    """Plain twin of K4 on (B, b, b) fp32: ``gj_eliminate``'s rule
+    (fused.py:74-137) -- the first max of |column r| over rows >= r, a real
+    row swap, normalize, eliminate with one FMA rounding, deposit. Returns
+    ``(inv (B, b, b), ok (B,))``."""
+    bsz, b, _ = d.shape
+    dev = d.device
+    items = torch.arange(bsz, device=dev)
+    eye = torch.eye(b, dtype=torch.float32, device=dev).expand(bsz, b, b)
+    aug = torch.cat([d, eye], dim=-1)
+    ok = torch.ones(bsz, dtype=torch.bool, device=dev)
+    for r in range(b):
+        col = aug[:, :, r].clone()
+        if pivot:
+            p = r + col[:, r:].abs().argmax(dim=1)
+        else:
+            p = torch.full((bsz,), r, dtype=torch.long, device=dev)
+        piv = col[items, p]
+        ok &= piv != 0
+        row_p = aug[items, p]
+        aug[items, p] = aug[:, r].clone()                  # the swap
+        col[items, p] = col[:, r].clone()
+        col[:, r] = 0.0
+        norm = row_p / torch.where(piv == 0, torch.ones_like(piv),
+                                   piv)[:, None]
+        aug = _fms(aug, col[:, :, None], norm[:, None, :])
+        aug[:, r] = norm
+    inv = aug[:, :, b:]
+    ok &= torch.isfinite(inv).all(dim=(-2, -1))
+    return inv, ok
+
+
+def invert_small(d: torch.Tensor, *, pivot: bool):
+    """K4 (``csrc/small_inv.cu``): invert (b, b) fp32 blocks, batched over
+    a leading axis; returns ``(inv, ok)`` in the input's batch shape. A
+    CUDA tensor launches the kernel (b <= 128, [D | I] in shared memory);
+    a CPU tensor takes :func:`invert_small_twin`."""
+    if d.ndim not in (2, 3) or d.shape[-1] != d.shape[-2]:
+        raise ValueError(f"K4 takes (b, b) or (B, b, b), got "
+                         f"{tuple(d.shape)}")
+    if d.dtype != torch.float32:
+        raise TypeError(f"K4 takes float32, got {d.dtype}")
+    d3 = d.reshape(-1, d.shape[-1], d.shape[-1]).contiguous()
+    bsz, b, _ = d3.shape
+    if d.device.type == "cpu":
+        inv, ok = invert_small_twin(d3, pivot=pivot)
+    elif d.device.type == "cuda":
+        if b > 128:
+            raise ValueError(f"K4 takes b <= 128, got b={b}")
+        lib = cuda_build.load()
+        inv = torch.empty_like(d3)
+        ok = torch.empty(bsz, dtype=torch.int32, device=d.device)
+        err = lib.matinv_small_inv(
+            d3.data_ptr(), inv.data_ptr(), ok.data_ptr(), bsz, b, int(pivot),
+            torch.cuda.current_stream(d.device).cuda_stream)
+        cuda_build.check(err, "K4 small_inv")
+        invert_small.launches += 1
+        ok = ok != 0
+    else:
+        raise ValueError(f"K4 runs on cuda (or its twin on cpu), not "
+                         f"{d.device}")
+    return inv.reshape(d.shape), ok.reshape(d.shape[:-2])
+
+
+invert_small.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Panel routes and the blocked driver
+# --------------------------------------------------------------------------
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """``a @ b`` for the driver's value-carrying GEMMs, in ``a``'s dtype.
+
+    ``"highest"`` accumulates fp32 products in float64 and rounds the sum
+    once. Each update eliminates, so the buffer and ``a @ b`` nearly
+    cancel, and an FP32 GEMM's summation error survives that cancellation.
+    The residual gates on the hollow protocol input were set on a TPU;
+    plain FP32 GEMMs miss them elsewhere, in both packages: at n = 1950
+    (seed 1950) the JAX package on the CPU refines to 3.0e-7, and this
+    driver with FP32 GEMMs to 2.2e-7 on the CPU and 9.8e-7 on an H100 80GB
+    HBM3 (700 W), against a gate of 1e-7; float64 accumulation gives
+    1.7e-8 and 1.8e-8. On that card it adds at most ~6% to a raw call from
+    n = 1950 to 16384 (``probes/gemm_precision.py``): Hopper runs float64
+    GEMMs on its tensor cores at the FP32 SIMT peak. ``"high"`` and
+    ``"default"`` run one GEMM at the precision the caller's
+    :func:`matmul_precision` scope sets (TF32 on the card, plain FP32 on
+    the CPU). fp64 operands run one fp64 GEMM.
+    """
+    if precision == "highest" and a.dtype != torch.float64:
+        return (a.double() @ b.double()).to(a.dtype)
+    return a @ b
 
 
 def _update(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             precision: str) -> None:
-    """``out += a @ b`` in place: the driver's value-carrying GEMMs.
-
-    ``"highest"`` accumulates the products in float64 and rounds the sum
-    once into the fp32 buffer. Each update eliminates, so ``out`` and
-    ``a @ b`` nearly cancel, and an FP32 GEMM's summation error survives
-    that cancellation. The residual gates on the hollow protocol input
-    were set on a TPU; plain FP32 GEMMs miss them elsewhere, in both
-    packages: at n = 1950 (seed 1950) the JAX package on the CPU refines
-    to 3.0e-7, and this driver with FP32 GEMMs to 2.2e-7 on the CPU and
-    9.8e-7 on an H100 80GB HBM3 (700 W), against a gate of 1e-7; float64
-    accumulation gives 1.7e-8 and 1.8e-8. On that card it adds at most
-    ~6% to a raw call from n = 1950 to 16384 (``probes/gemm_precision.py``):
-    Hopper runs float64 GEMMs on its tensor cores at the FP32 SIMT peak.
-    ``"high"`` and ``"default"`` run one GEMM at the precision the
-    caller's :func:`matmul_precision` scope sets (TF32 on the card, plain
-    FP32 on the CPU).
-    """
-    if precision == "highest":
+    """``out += a @ b`` in place, at :func:`_mm`'s precision."""
+    if precision == "highest" and out.dtype != torch.float64:
         out.copy_(torch.addmm(out.double(), a.double(), b.double()))
     else:
         out.addmm_(a, b)
 
 
+def _panel_pivots_logical(strip: torch.Tensor, used: torch.Tensor, kb: int,
+                          *, b: int, pivot: bool):
+    """Plain swap-free panel pivot search in any dtype (blocked.py:675-712):
+    b Gauss-Jordan steps on the (m, b) strip under the used-row mask, the
+    full-precision first max over unused rows. The reference runs it
+    without a Pallas kernel (fp64 past the f32-search tier, fp64 without
+    pivoting, fp32 past m = 65536). ``used`` is read only; returns
+    ``(pivrows (b,) int32, ok)``."""
+    dev = strip.device
+    w = strip.clone()
+    used = used != 0
+    pivrows = torch.empty(b, dtype=torch.int32, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    for r in range(b):
+        col = w[:, r].clone()
+        if pivot:
+            p = torch.where(used, torch.full_like(col, -1),
+                            col.abs()).argmax()
+        else:
+            p = torch.tensor(kb + r, device=dev)
+        piv = col[p]
+        ok &= piv != 0
+        used[p] = True
+        pivrows[r] = p
+        norm = w[p] / torch.where(piv == 0, torch.ones_like(piv), piv)
+        col[p] = 0.0
+        w -= col[:, None] * norm[None, :]
+        w[p] = norm
+    return pivrows, ok
+
+
+def _factor_panel(strip: torch.Tensor, kb: int, used: torch.Tensor, *,
+                  b: int, pivot: bool, use_kernels: bool, search_bf16: bool,
+                  emit: bool, search_f32: bool, precision: str):
+    """Pivot rows and composite transform C^T (b, m) of the (m, b) panel
+    ``strip`` (blocked.py:721-780); returns ``(pivrows, ct, ok)``.
+
+    On the fused route C^T comes from K2. Otherwise it is assembled from
+    the (b, b) pivot-block inverse: C = (E - L_masked) @ D^-1 - E, one
+    (m, b) @ (b, b) GEMM at :func:`_mm`'s precision.
+    """
+    m = strip.shape[0]
+    dev = strip.device
+    if emit:
+        return panel_factor(strip.t().contiguous(), kb, used, pivot=pivot)
+    if use_kernels:
+        # The split path: K3 finds the pivots (no-pivot rows are simply
+        # kb..kb+b-1, blocked.py:738-743), K4 inverts the pivot block.
+        if pivot:
+            search = strip.to(torch.bfloat16) if search_bf16 else strip
+            pivrows = pivot_search(search.t().contiguous(), used)
+        else:
+            pivrows = torch.arange(kb, kb + b, dtype=torch.int32, device=dev)
+        dinv, ok = invert_small(strip[pivrows.long()], pivot=pivot)
+    elif search_f32 and pivot:
+        # The FP64 f32-search tier (blocked.py:750-767): pivots from K3 on
+        # the strip cast to fp32, the pivot block inverted in fp64.
+        pivrows = pivot_search(strip.float().t().contiguous(), used)
+        dinv, ok = _gauss_jordan_aug(strip[pivrows.long()][None],
+                                     pivot=pivot)
+        dinv, ok = dinv[0], ok[0]
+    else:
+        pivrows, ok_p = _panel_pivots_logical(strip, used, kb, b=b,
+                                              pivot=pivot)
+        dinv, ok_d = _gauss_jordan_aug(strip[pivrows.long()][None],
+                                       pivot=pivot)
+        dinv, ok = dinv[0], ok_p & ok_d[0]
+    rows = pivrows.long()
+    lhs = -strip
+    lhs[rows] = torch.eye(b, dtype=strip.dtype, device=dev)
+    cmat = _mm(lhs, dinv, precision)
+    cmat[rows, torch.arange(b, device=dev)] -= 1.0
+    return pivrows, cmat.t(), ok
+
+
 def _group_factor(og: torch.Tensor, kb0: int, used: torch.Tensor, *,
-                  gsize: int, gw: int, b: int, pivot: bool, precision: str):
+                  gsize: int, gw: int, b: int, precision: str, **route):
     """Factor ``gsize`` consecutive panels on the [O | G] working set
-    ``og`` (m, 2*gw), in place (blocked.py:783-835). Marks the pivot rows
-    in ``used``; returns ``(pivtot (gw,) int32, ok)``."""
+    ``og`` (m, 2*gw), in place (blocked.py:783-835). ``route`` is
+    :func:`_factor_panel`'s choice of panel route. Marks the pivot rows in
+    ``used``; returns ``(pivtot (gw,) int32, ok)``."""
     dev = og.device
     pivtot = torch.empty(gw, dtype=torch.int32, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     probe_cols = torch.arange(b, device=dev)
     for i in range(gsize):
         ib = i * b
-        strip_t = og[:, ib:ib + b].t().contiguous()
-        pivrows, ct, ok_f = panel_factor(strip_t, kb0 + ib, used,
-                                         pivot=pivot)
+        pivrows, ct, ok_f = _factor_panel(og[:, ib:ib + b], kb0 + ib, used,
+                                          b=b, precision=precision, **route)
         ok &= ok_f
         pivtot[ib:ib + b] = pivrows
         rows = pivrows.long()
@@ -319,18 +572,18 @@ def _group_factor(og: torch.Tensor, kb0: int, used: torch.Tensor, *,
 
 
 def _blocked_gj(a: torch.Tensor, *, pivot: bool, b: int, group_size: int,
-                precision: str):
-    """Invert one (n, n) fp32 matrix; returns ``(inv, ok)``."""
+                precision: str, use_kernels: bool, search_bf16: bool):
+    """Invert one (n, n) fp32 or fp64 matrix; returns ``(inv, ok)``."""
     n = a.shape[-1]
     m = max(_round_up(n, b), b)
-    dev = a.device
+    dev, dtype = a.device, a.dtype
     # One (m, 2m) buffer, updated in place throughout. Left half: the A
     # working set padded to blockdiag(A, I) (padded rows are zero in real
     # columns, so they never win a pivot). Right half: the composite-
     # transform columns in PIVOT ORDER (slot t tracks the t-th pivot row),
     # deposited as each group finishes, so at group kk the live columns are
     # exactly [kb0+gw, m+kb0) -- one contiguous window of width m-gw.
-    aug = torch.zeros((m, 2 * m), dtype=torch.float32, device=dev)
+    aug = torch.zeros((m, 2 * m), dtype=dtype, device=dev)
     aug[:n, :n] = a
     pad = torch.arange(n, m, device=dev)
     aug[pad, pad] = 1.0
@@ -338,6 +591,14 @@ def _blocked_gj(a: torch.Tensor, *, pivot: bool, b: int, group_size: int,
     group = max(1, min(group_size, num_panels))
     num_groups, tail = divmod(num_panels, group)
     sizes = [group] * num_groups + ([tail] if tail else [])
+    # The FP64 f32-search tier where the f32 search reaches (blocked.py:
+    # 940-942); single-chip only, as in the reference.
+    route = dict(pivot=pivot, use_kernels=use_kernels,
+                 search_bf16=search_bf16,
+                 emit=_emit_fused(m, b, use_kernels, search_bf16),
+                 search_f32=(pivot and not use_kernels
+                             and dtype == torch.float64
+                             and b * m <= 128 * 8192 and b % 8 == 0))
 
     used = torch.zeros(m, dtype=torch.int32, device=dev)
     pos = torch.arange(m, dtype=torch.int32, device=dev)
@@ -345,10 +606,10 @@ def _blocked_gj(a: torch.Tensor, *, pivot: bool, b: int, group_size: int,
     kb0 = 0
     for gsize in sizes:
         gw = gsize * b
-        og = torch.zeros((m, 2 * gw), dtype=torch.float32, device=dev)
+        og = torch.zeros((m, 2 * gw), dtype=dtype, device=dev)
         og[:, :gw] = aug[:, kb0:kb0 + gw]
         pivtot, ok_g = _group_factor(og, kb0, used, gsize=gsize, gw=gw,
-                                     b=b, pivot=pivot, precision=precision)
+                                     b=b, precision=precision, **route)
         ok &= ok_g
         pos[kb0:kb0 + gw] = pivtot
         # Composite transform C = G - E^T, applied to the live window
@@ -388,17 +649,18 @@ def blocked_inverse(a: torch.Tensor, *, pivot: bool = True,
 
     Args:
       precision: GEMM precision of the trailing updates -- ``"highest"``
-        (products accumulated in float64, see :func:`_update`; the
+        (fp32 products accumulated in float64, see :func:`_mm`; the
         default) or ``"high"``/``"default"`` (TF32).
-      search_bf16: the reference's bf16 pivot-search tier (K3); not in this
-        port yet, so True raises ``NotImplementedError``.
+      search_bf16: run the pivot search (K3) on bf16 strips, the split
+        path; forced past m = 16384.
       group_size: panels per composite trailing update (default:
         ``_default_group_size``, composite width ~1024).
       refine: Newton-Schulz polish steps applied to the result (default 1;
         0 disables).
 
-    bf16 input computes in fp32 and returns bf16. A batch loops one matrix
-    at a time.
+    fp32 factors through the panel kernels, fp64 through the f32-search
+    tier or the plain logical panel (see the module docstring). bf16 input
+    computes in fp32 and returns bf16. A batch loops one matrix at a time.
     """
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"expected (..., n, n) square matrix, got "
@@ -415,16 +677,8 @@ def blocked_inverse(a: torch.Tensor, *, pivot: bool = True,
     b, use_kernels, search_bf16 = _select_block_params(
         n, block_size, a.dtype, search_bf16)
     m = max(_round_up(n, b), b)
-    if not use_kernels:
-        raise NotImplementedError(
-            f"blocked route for {a.dtype} n={n}: needs the FP64 f32-search "
-            "tier over kernel K3 (ROADMAP Queue 2, K3), not ported yet")
-    if not _emit_fused(m, b, use_kernels, search_bf16):
-        raise NotImplementedError(
-            f"blocked route at n={n} (b={b}, search_bf16={search_bf16}): "
-            "needs the split path, kernels K3 + K4 (ROADMAP Queue 2), not "
-            "ported yet")
-    if a.ndim > 2 and os.environ.get("MATINV_LOCKSTEP") == "1":
+    if (a.ndim > 2 and use_kernels and not search_bf16
+            and os.environ.get("MATINV_LOCKSTEP") == "1"):
         raise NotImplementedError(
             "MATINV_LOCKSTEP=1 needs the lockstep kernel K6 (ROADMAP "
             "Queue 2, K6), not ported yet")
@@ -436,7 +690,9 @@ def blocked_inverse(a: torch.Tensor, *, pivot: bool = True,
     for one in flat:
         with matmul_precision(precision):
             inv, ok = _blocked_gj(one, pivot=pivot, b=b,
-                                  group_size=group_size, precision=precision)
+                                  group_size=group_size, precision=precision,
+                                  use_kernels=use_kernels,
+                                  search_bf16=search_bf16)
         if refine > 0:
             # Newton-Schulz polish, paying back the grouped-update
             # accuracy trade (blocked.py:1063-1068).

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``nvcc`` compiles every source under ``csrc/`` for ``sm_90a`` into one
+``nvcc`` compiles every source under ``csrc/`` for ``sm_90a`` (one compiler
+process per source, all started together) and links the objects into one
 shared library with a plain C interface, which ``ctypes`` loads. The library
 lands in ``build/torch_kernels/`` beside the package, named by a content
 hash of the sources and flags, so an edited source rebuilds and an unchanged
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,12 @@ SIGNATURES = {
     # stripT, used, pivrows, ct, ok, wp, m, b, sub, kmask, kb, pivot, stream
     "matinv_panel_factor": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),
+    # stripT, used, pivrows, w, wp, m, b, sub, kmask, bf16, stream
+    "matinv_pivot_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a, inv, ok, batch, b, pivot, stream
+    "matinv_small_inv": (_P, _P, _P, _I, _I, _I, _P),
+    # a, out, ok, batch, b, stream
+    "matinv_small_lu": (_P, _P, _P, _I, _I, _P),
 }
 
 _lib = None
@@ -65,23 +72,38 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists.
 
-    The compiler's ``-Xptxas -v`` report (registers, shared memory, spills
-    per kernel) is kept beside the library as ``<name>.ptxas.txt``.
+    Each source compiles in its own ``nvcc -c`` process, all at once, then
+    one ``nvcc -shared`` links them. The compilers' ``-Xptxas -v`` reports
+    (registers, shared memory, spills per kernel) are kept beside the
+    library as ``<name>.ptxas.txt``.
     """
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    report = [proc.communicate()[0] for proc in procs]
+    for src, proc, text in zip(sources, procs, report):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} "
+                               f"({proc.returncode}):\n{text}")
+    tmp = out.with_name(f"{tag}.tmp.so")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    out.with_name(out.stem + ".ptxas.txt").write_text(proc.stdout
-                                                      + proc.stderr)
+    out.with_name(out.stem + ".ptxas.txt").write_text("".join(report))
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 

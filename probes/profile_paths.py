@@ -1,0 +1,90 @@
+"""Device-time breakdown of the port's blocked, split, FP64 and LU paths.
+
+    python3 -m probes.profile_paths
+
+Runs each path once to warm up, once on the host clock, then once under
+``torch.profiler`` (CPU and CUDA activities) and prints, per path: the
+unprofiled call's time on the host clock, the summed device time of its
+kernels in the profiled call, the device's idle share (1 - device time /
+host time; one stream, so kernels do not overlap), and
+the ten top entries by self device time (``key_averages``). The inputs are
+the hollow protocol matrices ``chip_smoke.py`` uses: 4096^2 seed 1 in FP32
+and FP64, and 20000^2 seed 20000. Needs a CUDA device; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from gpu_matrix_inversion_tpu_torch import inverse, solve
+from gpu_matrix_inversion_tpu_torch.utils.generators import (
+    hollow_random_matrix)
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def _paths(dev):
+    import numpy as np
+    x4k = torch.from_numpy(hollow_random_matrix(4096, seed=1)).to(dev)
+    x4k64 = torch.from_numpy(
+        hollow_random_matrix(4096, seed=1, dtype=np.float64)).to(dev)
+    rhs = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4096, 16)).astype(np.float32)).to(dev)
+    x20k = torch.from_numpy(hollow_random_matrix(20000, seed=20000)).to(dev)
+    return [
+        ("inverse, FP64 4096^2", lambda: inverse(x4k64)),
+        ("inverse, FP32 20000^2 (split path)", lambda: inverse(x20k)),
+        ("inverse, FP32 4096^2, search_bf16=True",
+         lambda: inverse(x4k, search_bf16=True)),
+        ("inverse, FP32 4096^2, method='lu'",
+         lambda: inverse(x4k, method="lu")),
+        ("solve, FP32 4096^2 x 16", lambda: solve(x4k, rhs)),
+    ]
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    for label, fn in _paths(dev):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # Kernel and memcpy entries only: an operator's own entry would
+        # count its kernels' time a second time.
+        events = sorted((e for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA),
+                        key=_device_us, reverse=True)
+        if not events:
+            raise SystemExit("the profiler recorded no device events")
+        device_ms = sum(_device_us(e) for e in events) / 1e3
+        print(f"\n== {label}: host {host_ms:.2f} ms, device {device_ms:.2f} "
+              f"ms, idle share {1 - device_ms / host_ms:.3f}")
+        for e in events[:10]:
+            us = _device_us(e)
+            if us <= 0:
+                break
+            print(f"  {us / 1e3:10.3f} ms {100 * us / 1e3 / device_ms:6.1f}% "
+                  f"{e.count:7d}x  {e.key[:90]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -182,7 +182,33 @@ def test_auto_routes_like_jax(n, batched, method):
         jresolve("auto", jnp.empty((40, 40), jnp.float64)))
 
 
-@pytest.mark.parametrize("method", ["lu", "cholesky", "ns", "sharded"])
+@pytest.mark.parametrize("n,dtype", [(600, "float64"), (20000, "float32")])
+def test_auto_routes_past_the_first_slice_like_jax(n, dtype):
+    """FP64 at n = 600 and FP32 at n = 20000 route to ``blocked`` in both
+    packages, and the blocked geometry sends them to the FP64 f32-search
+    tier and to the bf16-search split path (b = 64, m = 20032). Shapes
+    only: meta tensors and ShapeDtypeStructs allocate nothing."""
+    import jax
+    import jax.numpy as jnp
+    from gpu_matrix_inversion_tpu.models.solver import _resolve as jresolve
+    from gpu_matrix_inversion_tpu.ops import blocked as jblocked
+    from gpu_matrix_inversion_tpu_torch.models.solver import _resolve
+    from gpu_matrix_inversion_tpu_torch.ops import blocked as tblocked
+    a = torch.empty((n, n), dtype=getattr(torch, dtype), device="meta")
+    ja = jax.ShapeDtypeStruct((n, n), getattr(jnp, dtype))
+    assert _resolve("auto", a) == jresolve("auto", ja) == "blocked"
+    got = tblocked._select_block_params(n, 256, a.dtype, False)
+    assert got == jblocked._select_block_params(n, 256, ja.dtype, False)
+    b, use_kernels, search_bf16 = got
+    m = tblocked._round_up(n, b)
+    if dtype == "float64":
+        assert not use_kernels and b * m <= 128 * 8192 and b % 8 == 0
+    else:
+        assert (b, m, use_kernels, search_bf16) == (64, 20032, True, True)
+        assert not tblocked._emit_fused(m, b, use_kernels, search_bf16)
+
+
+@pytest.mark.parametrize("method", ["cholesky", "ns", "sharded"])
 def test_unported_methods_raise(method):
     with pytest.raises(NotImplementedError):
         tmi.inverse(torch.eye(8), method=method)

@@ -183,24 +183,11 @@ def test_geometry_matches_jax(n):
             == jblocked._select_block_params(n, 256, jnp.float64, False))
 
 
-@pytest.mark.parametrize("case", ["fp64", "search_bf16", "lockstep",
-                                  "split_path"])
+@pytest.mark.parametrize("case", ["lockstep"])
 def test_blocked_raises_where_the_slice_ends(case, monkeypatch):
     """Where the reference leaves this slice the port raises, naming the
     kernel it needs, instead of taking another route."""
-    a = torch.eye(64)
-    kwargs = {}
-    if case == "fp64":
-        a = a.double()
-    elif case == "search_bf16":
-        kwargs["search_bf16"] = True
-    elif case == "lockstep":
-        monkeypatch.setenv("MATINV_LOCKSTEP", "1")
-        a = torch.eye(64).expand(2, 64, 64)
-    else:
-        # Past b * m = 128 * 8192 (n > 16384) the gate closes; stand in
-        # for that size without allocating it.
-        assert not tblocked._emit_fused(16448, 64, True, False)
-        monkeypatch.setattr(tblocked, "_emit_fused", lambda *args: False)
-    with pytest.raises(NotImplementedError, match="K3|K6"):
-        tblocked.blocked_inverse(a, **kwargs)
+    monkeypatch.setenv("MATINV_LOCKSTEP", "1")
+    a = torch.eye(64).expand(2, 64, 64)
+    with pytest.raises(NotImplementedError, match="K6"):
+        tblocked.blocked_inverse(a)

@@ -18,7 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from gpu_matrix_inversion_tpu_torch.ops import blocked, fused  # noqa: E402
+from gpu_matrix_inversion_tpu_torch.ops import blocked, fused, lu  # noqa: E402,E501
 
 pytestmark = pytest.mark.gpu
 
@@ -71,6 +71,82 @@ def test_k2_matches_twin(cuda, m, b, kb):
     assert bool(ok_k) and bool(ok_t)
     assert not bool(used[p_k.long()].any())
     assert _rel(ct_k, ct_t) <= 1e-4
+
+
+@pytest.mark.parametrize("m,b,dtype", [
+    (4096, 128, torch.float32), (4096, 128, torch.bfloat16),
+    (20032, 64, torch.bfloat16), (4096, 256, torch.float32),
+    (65536, 32, torch.bfloat16)])
+def test_k3_matches_twin(cuda, m, b, dtype):
+    """K3 at the split path's, LU's and the FP64 tier's shapes, and at the
+    largest m the gates admit, with a third of the rows already used."""
+    rng = np.random.default_rng(m + b)
+    strip = torch.from_numpy(
+        rng.standard_normal((b, m)).astype(np.float32)).to(cuda).to(dtype)
+    used = torch.zeros(m, dtype=torch.int32, device=cuda)
+    used[::3] = 1
+    before = blocked.pivot_search.launches
+    p_k = blocked.pivot_search(strip, used)
+    assert blocked.pivot_search.launches == before + 1
+    p_t = blocked.pivot_search_twin(strip, used)
+    assert torch.equal(p_k, p_t)
+    assert not bool(used[p_k.long()].any())
+
+
+@pytest.mark.parametrize("b,pivot", [(64, True), (128, True), (32, False)])
+def test_k4_matches_twin(cuda, b, pivot):
+    # 256 random blocks, so that row swaps happen at nearly every step of
+    # many blocks in flight at once (a race between warps shows here), and
+    # one singular block.
+    rng = np.random.default_rng(b)
+    d = rng.standard_normal((257, b, b)).astype(np.float32)
+    if not pivot:
+        d += b * np.eye(b, dtype=np.float32)
+    d[-1, :, 7] = 0.0
+    x = torch.from_numpy(d).to(cuda)
+    inv_k, ok_k = blocked.invert_small(x, pivot=pivot)
+    inv_t, ok_t = blocked.invert_small_twin(x, pivot=pivot)
+    assert ok_k.tolist() == ok_t.tolist() == [True] * 256 + [False]
+    assert _rel(inv_k[:-1], inv_t[:-1]) <= 1e-4
+
+
+def test_k5_matches_twin(cuda):
+    rng = np.random.default_rng(5)
+    d = rng.standard_normal((3, 128, 128)).astype(np.float32)
+    d += 128 * np.eye(128, dtype=np.float32)
+    d[2, 7, :8] = 0.0                      # a zero pivot
+    x = torch.from_numpy(d).to(cuda)
+    lu_k, ok_k = lu.small_lu(x)
+    lu_t, ok_t = lu.small_lu_twin(x)
+    assert ok_k.tolist() == ok_t.tolist() == [True, True, False]
+    assert _rel(lu_k[:2], lu_t[:2]) <= 1e-4
+
+
+def test_new_paths_launch_their_kernels(cuda):
+    """The split path launches K3 and K4, the FP64 tier K3, the LU route
+    K3 and K5; each meets its residual gate."""
+    from gpu_matrix_inversion_tpu_torch import inverse, solve
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    from gpu_matrix_inversion_tpu_torch.utils.residual import (
+        relative_residual)
+    a32 = hollow_random_matrix(1024, seed=4)
+    a64 = hollow_random_matrix(1024, seed=4, dtype=np.float64)
+    k3, k4, k5 = (blocked.pivot_search.launches,
+                  blocked.invert_small.launches, lu.small_lu.launches)
+    inv, ok = inverse(torch.from_numpy(a32).to(cuda), search_bf16=True)
+    assert bool(ok) and relative_residual(a32, inv.cpu().numpy()) < 1e-6
+    assert blocked.invert_small.launches > k4
+    inv, ok = inverse(torch.from_numpy(a64).to(cuda))
+    assert bool(ok) and relative_residual(a64, inv.cpu().numpy()) < 1e-13
+    k3_mid = blocked.pivot_search.launches
+    assert k3_mid > k3
+    inv, ok = inverse(torch.from_numpy(a32).to(cuda), method="lu")
+    assert bool(ok) and relative_residual(a32, inv.cpu().numpy()) < 1e-5
+    assert lu.small_lu.launches > k5 and blocked.pivot_search.launches > k3_mid
+    b = torch.ones(1024, 2, device=cuda)
+    x, ok = solve(torch.from_numpy(a32).to(cuda), b)
+    assert bool(ok) and x.shape == (1024, 2)
 
 
 def test_k1_flags_singular_and_nan(cuda):
