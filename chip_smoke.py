@@ -3,17 +3,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``gpu_matrix_inversion_tpu_torch/csrc``,
-holds each (K1 to K5) against its plain PyTorch twin on the card, and
-drives the public entry points end to end: the shipped product call
-``matrix_inv_32`` and ``inverse`` (fused and blocked routes, the contract
-probes), then the second slice's paths -- FP64 through K3's f32-search
-tier, no-pivot FP64, ``matrix_inv_32`` at n = 20000 (the split path, K3 on
-bf16 strips + K4), the bf16-search blocked call, the LU route (``inverse``
-with ``method="lu"``, ``solve``, ``slogdet``; K3 + K5). Each path runs with
-the kernels' launch counts zeroed just before it and read just after, and
-must have launched its kernels. It checks residual gates, repeat-run
-determinism, and times the kernels beside their twins, their bounds and
-the library call that computes the same function, where there is one. Any
+holds each (K1 to K7) against its plain PyTorch twin on the card (K6 also
+against K2 run per matrix and its twin on the CPU, bit for bit; K7's fp32
+results against the float64 product), and drives the public entry points
+end to end: the shipped product call ``matrix_inv_32`` and ``inverse``
+(fused and blocked routes, the contract probes), then the second slice's
+paths -- FP64 through K3's f32-search tier, no-pivot FP64,
+``matrix_inv_32`` at n = 20000 (the split path, K3 on bf16 strips + K4),
+the bf16-search blocked call, the LU route (``inverse`` with
+``method="lu"``, ``solve``, ``slogdet``; K3 + K5) -- and the third slice's:
+the opt-in lockstep route (``MATINV_LOCKSTEP=1``, K6) on (16, 1024^2) and
+(8, 2048^2) batches against the per-matrix route, K7 as the verification
+GEMM of the 4096^2 inverse, ``inverse(method="ns")`` and ``Inverter``.
+Each path runs with the kernels' launch counts zeroed just before it and
+read just after, and must have launched its kernels. It checks residual
+gates, repeat-run determinism, and times the kernels beside their twins,
+their bounds and the library call that computes the same function, where
+there is one. Any
 failed check exits nonzero; nothing is caught and passed over. Each
 phase prints its seconds. The second-to-last line of stdout is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -23,7 +29,9 @@ The port imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -68,16 +76,20 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 # the bf16 pivot search rounds; a per-op-rounded rank-1 update cannot run
 # on the tensor cores), and HBM bandwidth.
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 133.8e12}
+# A bf16 matrix product can run on the tensor cores (dense peak, NVIDIA's
+# H100 architecture whitepaper).
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
-def bound(flops: float, nbytes: float,
-          dtype: torch.dtype = torch.float32) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, dtype: torch.dtype = torch.float32,
+          peak: float | None = None) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the larger of the
-    operations the function needs over the peak for their type and the
-    bytes (each input read once, each output written once) over the
-    memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_HBM_BYTES
+    operations the function needs over the peak for their type (or
+    ``peak``) and the bytes (each input read once, each output written
+    once) over the memory rate."""
+    t_ops = flops / (peak or PEAK_FLOPS[dtype])
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -108,6 +120,34 @@ def rel_err(x: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return d, d / float(ref.double().abs().max())
 
 
+def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Bit for bit equality of two fp32 tensors (NaNs included)."""
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@contextlib.contextmanager
+def lockstep_on():
+    """Opt in to the lockstep route (MATINV_LOCKSTEP=1) for the block."""
+    prev = os.environ.get("MATINV_LOCKSTEP")
+    os.environ["MATINV_LOCKSTEP"] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["MATINV_LOCKSTEP"]
+        else:
+            os.environ["MATINV_LOCKSTEP"] = prev
+
+
+def device_ms(fn) -> float:
+    """Summed device time of one call's kernels and copies (after a
+    warm-up call), from torch.profiler."""
+    from gpu_matrix_inversion_tpu_torch.utils.profiling import device_kernels
+    fn()
+    torch.cuda.synchronize()
+    return sum(ms for _, _, ms in device_kernels(fn))
+
+
 def batched_residual(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """relative_residual (utils/residual.py) per matrix of a batch, in
     float64 on the card: ||A X - I||_F / (||A||_F ||X||_F)."""
@@ -123,12 +163,15 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs an "
              "NVIDIA GPU")
     from gpu_matrix_inversion_tpu_torch import (
-        inverse, matrix_inv_32, matrix_inversion_fp64,
+        Inverter, inverse, matrix_inv_32, matrix_inversion_fp64,
         matrix_inversion_no_pivots, slogdet, solve)
-    from gpu_matrix_inversion_tpu_torch.ops import blocked, fused, lu
+    from gpu_matrix_inversion_tpu_torch.models.newton_schulz import (
+        newton_schulz_inverse)
+    from gpu_matrix_inversion_tpu_torch.ops import (blocked, fused, lockstep,
+                                                    lu, matmul)
     from gpu_matrix_inversion_tpu_torch.utils import cuda_build
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
-        hollow_random_matrix)
+        hollow_random_matrix, well_conditioned_matrix)
     from gpu_matrix_inversion_tpu_torch.utils.precision import (
         matmul_precision)
     from gpu_matrix_inversion_tpu_torch.utils.residual import (
@@ -136,7 +179,8 @@ def main() -> None:
 
     wrappers = {"K1": fused.gj_kernel, "K2": blocked.panel_factor,
                 "K3": blocked.pivot_search, "K4": blocked.invert_small,
-                "K5": lu.small_lu}
+                "K5": lu.small_lu, "K6": lockstep.lockstep_factor,
+                "K7": matmul.tiled_matmul}
 
     def zero_counts() -> None:
         for fn in wrappers.values():
@@ -317,6 +361,122 @@ def main() -> None:
               f"{name}: ok equal (256 true, the singular block false)")
         check(d_rel <= 1e-4, f"{name}: values within 1e-4")
 
+    # ---- phase 4d: K6 against K2 run per matrix, and its twin -----------
+    # Tolerance: bit for bit against K2 run on each matrix alone and against
+    # the twin run on the CPU (pivot rows, C^T, ok). The twin on the card
+    # differs from both at m = 1024 (its deferred dot is a cuBLAS product,
+    # which sums in another order at that shape), so it is held to K2's
+    # tolerance: pivot rows identical, ok equal, C^T within 1e-4 of
+    # max|twin|. The lockstep gate's full shapes, k = 8 at m = 1024 and
+    # k = 4 at m = 2048 (b = 128), each with an empty and a prior panel's
+    # mask; no pivoting once, on strips made diagonally dominant at the
+    # pivot rows.
+    phase("phase 4d: K6 lockstep_factor vs K2 per matrix and its twin")
+    k6_abs = 0.0
+    for k, m in ((8, 1024), (4, 2048)):
+        b = 128
+        strips = torch.from_numpy(
+            rng.standard_normal((k, b, m)).astype(np.float32)).to(dev)
+        empty = torch.zeros((k, m), dtype=torch.int32, device=dev)
+        prior = empty.clone()
+        for i in range(k):
+            prior[i, blocked.panel_factor_twin(strips[i], 0, empty[i],
+                                               pivot=True)[0].long()] = 1
+        runs = [("empty mask", 0, empty, True, strips),
+                ("prior panel's mask", b, prior, True, strips)]
+        if m == 1024:
+            dom = strips.clone()
+            dom[:, :, b:2 * b] += b * torch.eye(b, device=dev)
+            runs.append(("no pivot", b, prior, False, dom))
+        for label, kb, mask, pivot, s in runs:
+            p6, ct6, ok6 = lockstep.lockstep_factor(s, kb, mask, pivot=pivot)
+            torch.cuda.synchronize()
+            same = True
+            for i in range(k):
+                p2, ct2, ok2 = blocked.panel_factor(s[i], kb, mask[i],
+                                                    pivot=pivot)
+                same &= (torch.equal(p6[i], p2) and bits_equal(ct6[i], ct2)
+                         and bool(ok6[i]) == bool(ok2))
+            p_c, ct_c, ok_c = lockstep.lockstep_factor_twin(
+                s.cpu(), kb, mask.cpu(), pivot=pivot)
+            p_t, ct_t, ok_t = lockstep.lockstep_factor_twin(s, kb, mask,
+                                                            pivot=pivot)
+            d_abs, d_rel = rel_err(ct6, ct_t)
+            k6_abs = max(k6_abs, d_abs)
+            name = f"k={k} m={m} b={b} {label}"
+            log(f"  {name}: against the twin on the card max abs "
+                f"{d_abs:.3e}, rel {d_rel:.3e}")
+            check(same, f"K6 {name}: bit-identical to K2 run per matrix")
+            check(torch.equal(p6.cpu(), p_c) and bits_equal(ct6.cpu(), ct_c)
+                  and ok6.tolist() == ok_c.tolist() == [True] * k,
+                  f"K6 {name}: bit-identical to the twin on the CPU")
+            check(torch.equal(p6, p_t), f"K6 {name}: twin's pivrows identical")
+            check(ok6.tolist() == ok_t.tolist() == [True] * k,
+                  f"K6 {name}: ok equal (all true)")
+            check(d_rel <= 1e-4,
+                  f"K6 {name}: C^T within 1e-4 of the twin on the card")
+
+    # ---- phase 4e: K7 against its twin -----------------------------------
+    # Tolerance, fp32: matmul.fp32_error_bound elementwise against the
+    # float64 product (a statistical bound on an fp32 sum of terms of random
+    # sign, which a TF32 product or one of bf16-rounded operands exceeds on
+    # most elements: two controls below must fail it). bf16:
+    # matmul.error_bound against the twin (both sum exact products in fp32,
+    # in other orders, then may round to neighbouring bf16 values). 4096^3
+    # (the timed shape) and 300 x 200 @ 200 x 150 (edge tiles).
+    phase("phase 4e: K7 tiled_matmul vs its twin")
+    k7_abs = 0.0
+    big = [torch.from_numpy(rng.standard_normal((4096, 4096)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    small = [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) for shape in ((300, 200), (200, 150))]
+    for label, (ga, gb) in (("4096x4096 @ 4096x4096", big),
+                            ("300x200 @ 200x150", small)):
+        for dtype in (torch.float32, torch.bfloat16):
+            xa, xb = ga.to(dtype), gb.to(dtype)
+            out = matmul.tiled_matmul(xa, xb)
+            torch.cuda.synchronize()
+            twin = matmul.tiled_matmul_twin(xa, xb)
+            diff = float((out.float() - twin.float()).abs().max())
+            name = f"{label} {str(dtype)[6:]}"
+            if dtype == torch.float32 and label.startswith("4096"):
+                k7_abs = diff
+            check(out.dtype == dtype and out.shape == twin.shape,
+                  f"K7 {name}: dtype and shape")
+            if dtype == torch.bfloat16:
+                worst = float(((out.float() - twin.float()).abs()
+                               / matmul.error_bound(xa, xb)).max())
+                log(f"  {name}: max abs {diff:.3e} against the twin, at "
+                    f"most {worst:.3f} of matmul.error_bound")
+                check(worst <= 1.0, f"K7 {name}: within the bound")
+                continue
+            exact = xa.double() @ xb.double()
+            tol = matmul.fp32_error_bound(xa, xb)
+            with matmul_precision("high"):
+                tf32 = xa @ xb
+            ratios = {
+                key: (c.double() - exact).abs() / tol
+                for key, c in (("K7", out), ("twin", twin),
+                               ("TF32 control", tf32),
+                               ("bf16-operand control", matmul.tiled_matmul(
+                                   xa.bfloat16().float(),
+                                   xb.bfloat16().float())))}
+            log(f"  {name}: max abs {diff:.3e} against the twin "
+                f"(bit-identical: {bits_equal(out, twin)}); against the "
+                f"float64 product, at most this share of fp32_error_bound "
+                f"(elements over it): " + ", ".join(
+                    f"{key} {float(r.max()):.3f} "
+                    f"({float((r > 1).double().mean()):.4f})"
+                    for key, r in ratios.items()))
+            check(float(ratios["K7"].max()) <= 1.0,
+                  f"K7 {name}: within fp32_error_bound of the exact product")
+            for key in ("TF32 control", "bf16-operand control"):
+                check(float((ratios[key] > 1).double().mean()) > 0.5,
+                      f"K7 {name}: the {key} fails fp32_error_bound on most "
+                      f"elements")
+            del exact, tol, tf32, ratios
+    del small, out, twin
+
     # ---- phase 5: the main path through the public API ------------------
     phase("phase 5: main path (matrix_inv_32 / inverse on cuda)")
     zero_counts()
@@ -478,6 +638,112 @@ def main() -> None:
           and abs(float(logabs) - want_log) <= 1e-4 * abs(want_log),
           "slogdet 1024 matches numpy (sign equal, log within 1e-4)")
 
+    # ---- phase 5f: the lockstep route ------------------------------------
+    # inverse on FP32 hollow batches at the JAX package's recorded lockstep
+    # shapes, opted in (MATINV_LOCKSTEP=1) and not: the two must agree bit
+    # for bit, raw (refine=0) and refined (the default); the lockstep call
+    # launches K6 (k = 8 at n = 1024: 2 chunks x 8 panels; k = 4 at
+    # n = 2048: 2 x 16) and never K2. Gates: refined <= 1e-6, raw <= 1e-4,
+    # as at 4096^2. Then a batch of 5 at n = 2048 (an odd tail: chunks of 4
+    # and 1) and one with an all-ones member, whose ok alone is false.
+    phase("phase 5f: lockstep route (MATINV_LOCKSTEP=1) vs per-matrix")
+    lockstep_in, counts_ls = {}, {}
+    for bsz, n, want in ((16, 1024, 16), (8, 2048, 32)):
+        xs = torch.from_numpy(np.stack([
+            hollow_random_matrix(n, seed=n + i) for i in range(bsz)])).to(dev)
+        lockstep_in[(bsz, n)] = xs
+        off, ok_off = inverse(xs)
+        off_raw, _ = blocked.blocked_inverse(xs, refine=0)
+        with lockstep_on():
+            zero_counts()
+            on, ok_on = inverse(xs)
+            counts_ls[n] = read_counts(f"lockstep inverse ({bsz}, {n}, {n})",
+                                       ("K6",))
+            on_raw, ok_on_raw = blocked.blocked_inverse(xs, refine=0)
+        name = f"({bsz}, {n}, {n})"
+        check(counts_ls[n]["K6"] == want and counts_ls[n]["K2"] == 0,
+              f"lockstep {name}: K6 launched {want} times, K2 never")
+        check(bits_equal(on, off) and bits_equal(on_raw, off_raw),
+              f"lockstep {name}: bit-identical to the per-matrix route, "
+              f"refined and raw")
+        check(bool(ok_on.all()) and bool(ok_on_raw.all())
+              and bool(ok_off.all()), f"lockstep {name}: all ok")
+        res, res_raw = batched_residual(xs, on), batched_residual(xs, on_raw)
+        log(f"  {name}: max residual raw {float(res_raw.max()):.3e}, "
+            f"refined {float(res.max()):.3e}")
+        check(float(res.max()) <= 1e-6 and float(res_raw.max()) <= 1e-4,
+              f"lockstep {name}: refined <= 1e-6, raw <= 1e-4")
+    del off, off_raw, on, on_raw
+    x5 = lockstep_in[(8, 2048)][:5]
+    off, _ = inverse(x5)
+    with lockstep_on():
+        zero_counts()
+        on, ok5 = inverse(x5)
+        read_counts("lockstep inverse (5, 2048, 2048)", ("K6",))
+    check(bits_equal(on, off) and bool(ok5.all()),
+          "lockstep (5, 2048, 2048) odd tail: bit-identical, all ok")
+    xsing = lockstep_in[(16, 1024)][:4].clone()
+    xsing[2] = 1.0
+    off, ok_off = inverse(xsing)
+    with lockstep_on():
+        on, ok_on = inverse(xsing)
+    log(f"  all-ones member 2: ok {ok_on.tolist()}")
+    check(ok_on.tolist() == ok_off.tolist() == [True, True, False, True],
+          "lockstep with an all-ones member: its ok alone false")
+    check(bits_equal(on, off), "lockstep with an all-ones member: "
+          "bit-identical to the per-matrix route")
+    del x5, xsing, off, on
+
+    # ---- phase 5g: K7 as the verification GEMM --------------------------
+    # The reference's C8 use: A @ X of the 4096^2 blocked inverse through
+    # K7 in fp32, and the normalized residual from it; it must agree with
+    # utils/residual.py's float64 one within 1% (fp32 rounding of A X adds
+    # about u / sqrt(n) of ||A|| ||X||, far below the raw 1.8e-5).
+    phase("phase 5g: K7 as the verification GEMM of the 4096^2 inverse")
+    zero_counts()
+    prod = matmul.tiled_matmul(x4k, raw)
+    counts_k7 = read_counts("the verification GEMM A @ X at 4096^2", ("K7",))
+    eye = torch.eye(4096, dtype=torch.float64, device=dev)
+    r_k7 = float(torch.linalg.matrix_norm(prod.double() - eye)
+                 / (torch.linalg.matrix_norm(x4k.double())
+                    * torch.linalg.matrix_norm(raw.double())))
+    log(f"  raw 4096^2 inverse: residual from K7 {r_k7:.6e}, "
+        f"utils/residual.py {r_raw:.6e}")
+    check(abs(r_k7 - r_raw) <= 1e-2 * r_raw,
+          "K7 residual agrees with utils/residual.py within 1%")
+    del prod, eye
+
+    # ---- phase 5h: Newton-Schulz and Inverter ---------------------------
+    # Gates of the JAX package's tests: ns residual <= 1e-5 and ok (also
+    # mixed=True), ok false on an all-ones matrix; Inverter on the blocked
+    # route (polished twice) <= 1e-6 as at 4096^2, and with ns <= 1e-5.
+    phase("phase 5h: Newton-Schulz (inverse method=ns) and Inverter")
+    w4k = well_conditioned_matrix(4096, seed=4096)
+    xwc = torch.from_numpy(w4k).to(dev)
+    zero_counts()
+    x_ns, ok_ns = inverse(xwc, method="ns")
+    read_counts("inverse(method='ns') 4096^2", ())
+    x_mx, ok_mx = newton_schulz_inverse(xwc, mixed=True)
+    _, ok_one = inverse(torch.ones(1024, 1024, device=dev), method="ns")
+    r_ns, r_mx = (float(batched_residual(xwc, x)) for x in (x_ns, x_mx))
+    log(f"  ns 4096^2: residual {r_ns:.3e}; mixed {r_mx:.3e}")
+    check(bool(ok_ns) and r_ns <= 1e-5, "ns 4096^2: ok, residual <= 1e-5")
+    check(bool(ok_mx) and r_mx <= 1e-5,
+          "ns mixed=True 4096^2: ok, residual <= 1e-5")
+    check(not bool(ok_one), "ns on an all-ones 1024^2 matrix: ok false")
+    zero_counts()
+    x_iv, ok_iv = Inverter(method="blocked", refine_iters=1).inverse(a4k)
+    read_counts("Inverter(method='blocked', refine_iters=1) 4096^2",
+                ("K2",))
+    x_in, ok_in = Inverter(method="ns").inverse(w4k)
+    r_iv = float(batched_residual(x4k, x_iv))
+    r_in = float(batched_residual(xwc, x_in))
+    log(f"  Inverter 4096^2: blocked + 1 polish {r_iv:.3e}; ns {r_in:.3e}")
+    check(bool(ok_iv) and r_iv <= 1e-6,
+          "Inverter blocked refine_iters=1: ok, residual <= 1e-6")
+    check(bool(ok_in) and r_in <= 1e-5, "Inverter ns: ok, residual <= 1e-5")
+    del x_ns, x_mx, x_iv, x_in
+
     # ---- phase 6: determinism -------------------------------------------
     phase("phase 6: repeat runs")
     first, _ = inverse(x4k)
@@ -558,6 +824,52 @@ def main() -> None:
     times["lu_inverse_4096_ms"] = cuda_ms(
         lambda: inverse(x4k, method="lu"), iters=2)
     times["lu_solve_4096x16_ms"] = cuda_ms(lambda: solve(x4k, rhs), iters=2)
+    # K6 per launch at the lockstep shapes beside K2 on one of its strips
+    # (k x K2 is the per-matrix route's factor time for the same panels),
+    # and K6 on that strip alone (k = 1: K2's step chain in K6's build);
+    # then the batch calls, lockstep against per-matrix: CUDA events around
+    # the call, and the profiler's summed device time of one call.
+    for k, m in ((8, 1024), (4, 2048), (1, 4096)):
+        s6 = torch.from_numpy(rng.standard_normal((k, 128, m)).astype(
+            np.float32)).to(dev)
+        u6 = torch.zeros((k, m), dtype=torch.int32, device=dev)
+        times[f"k2_m{m}_ms"] = cuda_ms(
+            lambda: blocked.panel_factor(s6[0], 0, u6[0], pivot=True),
+            iters=10)
+        times[f"k6_k1_m{m}_ms"] = cuda_ms(
+            lambda: lockstep.lockstep_factor(s6[:1], 0, u6[:1], pivot=True),
+            iters=10)
+        if k == 1:
+            continue
+        times[f"k6_k{k}_m{m}_ms"] = cuda_ms(
+            lambda: lockstep.lockstep_factor(s6, 0, u6, pivot=True), iters=10)
+        times[f"k6_twin_k{k}_m{m}_ms"] = cuda_ms(
+            lambda: lockstep.lockstep_factor_twin(s6, 0, u6, pivot=True),
+            iters=1)
+        times[f"k2_times_k{k}_m{m}_ms"] = k * times[f"k2_m{m}_ms"]
+    for (bsz, n), xs in lockstep_in.items():
+        key = f"batch{bsz}_n{n}"
+        times[f"{key}_per_matrix_ms"] = cuda_ms(lambda: inverse(xs), iters=2)
+        times[f"{key}_per_matrix_device_ms"] = device_ms(lambda: inverse(xs))
+        with lockstep_on():
+            times[f"{key}_lockstep_ms"] = cuda_ms(lambda: inverse(xs),
+                                                  iters=2)
+            times[f"{key}_lockstep_device_ms"] = device_ms(
+                lambda: inverse(xs))
+    # K7 at 4096^3 beside its twin and the library GEMM: fp32 with TF32 off
+    # (the twin is that same call), bf16 against bf16 torch.matmul.
+    for dtype in (torch.float32, torch.bfloat16):
+        xa, xb = (g.to(dtype) for g in big)
+        tag = str(dtype)[6:]
+        times[f"k7_4096_{tag}_ms"] = cuda_ms(
+            lambda: matmul.tiled_matmul(xa, xb), iters=5)
+        times[f"k7_twin_4096_{tag}_ms"] = cuda_ms(
+            lambda: matmul.tiled_matmul_twin(xa, xb), iters=5)
+        with matmul_precision("highest"):
+            times[f"k7_library_matmul_4096_{tag}_ms"] = cuda_ms(
+                lambda: xa @ xb, iters=5)
+    del big, xa, xb
+    times["ns_4096_ms"] = cuda_ms(lambda: inverse(xwc, method="ns"), iters=1)
     rates = {
         "k1_batch4096_inv_per_s": 4096 / (times["k1_batch4096_ms"] / 1e3),
         "k1_twin_batch4096_inv_per_s":
@@ -586,7 +898,19 @@ def main() -> None:
                     64 * 20032 * 2 + 20032 * 4 + 64 * 4, torch.bfloat16),
         "K4": bound(2 * 64 ** 3, 2 * 64 * 64 * 4 + 4),
         "K5": bound(panel_lu_flops(128, 128), 2 * 128 * 128 * 4 + 4),
+        # K6: k x K2's at the n = 1024 batch's k = 8, m = 1024.
+        "K6": bound(8 * 2 * (1024 - 1) * 128 ** 2,
+                    8 * (2 * 128 * 1024 * 4 + 1024 * 4 + 128 * 4 + 4)),
+        # K7: 2 m n k at the FP32 peak outside the tensor cores.
+        "K7": bound(2 * 4096 ** 3, 3 * 4096 * 4096 * 4),
     }
+    k6_2048 = bound(4 * 2 * (2048 - 1) * 128 ** 2,
+                    4 * (2 * 128 * 2048 * 4 + 2048 * 4 + 128 * 4 + 4))
+    log(f"  K6 bound at k = 4, m = 2048: {k6_2048[0]:.6f} ms ({k6_2048[1]})")
+    k7_bf16 = bound(2 * 4096 ** 3, 3 * 4096 * 4096 * 2,
+                    peak=PEAK_BF16_TENSOR_FLOPS)
+    log(f"  K7 bound at 4096^3 bf16 (tensor cores): {k7_bf16[0]:.6f} ms "
+        f"({k7_bf16[1]})")
     k3_fp32 = bound(panel_lu_flops(4096, 128),
                     128 * 4096 * 4 + 4096 * 4 + 128 * 4)
     log(f"  K3 bound at (4096, 128) fp32: {k3_fp32[0]:.6f} ms ({k3_fp32[1]})")
@@ -625,6 +949,15 @@ def main() -> None:
         record("K5 small_lu", "small_lu.cu", "lu.py:173", counts_lu["K5"],
                k5_abs, times["k5_b128_ms"], times["k5_twin_b128_ms"],
                times["k5_library_lu_nopivot_b128_ms"]),
+        # No PyTorch call factors panels of k matrices into pivot rows and
+        # C^T (K6).
+        record("K6 lockstep_factor", "panel_factor.cu", "lockstep.py:84",
+               counts_ls[1024]["K6"], k6_abs, times["k6_k8_m1024_ms"],
+               times["k6_twin_k8_m1024_ms"], None),
+        record("K7 tiled_matmul", "tiled_matmul.cu", "matmul.py:30",
+               counts_k7["K7"], k7_abs, times["k7_4096_float32_ms"],
+               times["k7_twin_4096_float32_ms"],
+               times["k7_library_matmul_4096_float32_ms"]),
     ]
     phase("done")
     print(smi)

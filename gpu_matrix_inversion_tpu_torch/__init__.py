@@ -5,15 +5,21 @@ one counterpart there, and the tests hold the two against each other. This
 port carries:
 
 - the flat-vector API (``api.py``) and the ``Res`` bench records;
-- ``inverse`` with the ``auto``, ``spec``, ``fused``, ``blocked`` and
-  ``lu`` routes, and ``solve`` (``models/solver.py``);
+- ``inverse`` with the ``auto``, ``spec``, ``fused``, ``blocked``, ``lu``
+  and ``ns`` routes, ``solve``, and the config-driven ``Inverter`` with
+  ``InversionConfig`` (``models/solver.py``, ``utils/config.py``);
 - the fused route through kernel K1 (``csrc/fused_gj.cu``); the blocked
   route through kernel K2 (``csrc/panel_factor.cu``), or past its gate
   the split path through K3 (the pivot search) and K4
   (``csrc/small_inv.cu``), plus GEMMs and a Newton-Schulz polish; FP64
-  through K3's f32-search tier or the plain logical panel;
+  through K3's f32-search tier or the plain logical panel; with
+  ``MATINV_LOCKSTEP=1``, FP32 batches through the lockstep route, k
+  matrices per launch of kernel K6 (``csrc/panel_factor.cu``);
 - the LU route (getrf through K3 and K5, ``csrc/small_lu.cu``; getri by
-  triangular inversion), ``det`` and ``slogdet`` (``ops/lu.py``).
+  triangular inversion), ``det`` and ``slogdet`` (``ops/lu.py``);
+- the Newton-Schulz family (``models/newton_schulz.py``) and the
+  verification GEMM ``tiled_matmul``, kernel K7 (``csrc/tiled_matmul.cu``,
+  ``ops/matmul.py``).
 
 The kernels are CUDA C++ for ``sm_90a``, built with ``nvcc`` on first use
 (``utils/cuda_build.py``); importing the package builds nothing. Every
@@ -37,7 +43,9 @@ from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
     gauss_jordan_inverse)
 from gpu_matrix_inversion_tpu_torch.ops.lu import (det, invert_triangular,
                                                    slogdet)
-from gpu_matrix_inversion_tpu_torch.models.solver import inverse, solve
+from gpu_matrix_inversion_tpu_torch.models.solver import (Inverter, inverse,
+                                                         solve)
+from gpu_matrix_inversion_tpu_torch.utils.config import InversionConfig
 
 __version__ = "0.1.0"
 
@@ -57,5 +65,7 @@ __all__ = [
     "invert_triangular",
     "inverse",
     "solve",
+    "Inverter",
+    "InversionConfig",
     "__version__",
 ]

@@ -1,4 +1,4 @@
-// K2 and K3: the panel kernels of the blocked Gauss-Jordan path.
+// K2, K3 and K6: the panel kernels of the blocked Gauss-Jordan path.
 //
 // K2 (fused panel factorization) replaces
 // gpu_matrix_inversion_tpu/ops/blocked.py:_panel_factor_kernel2 and its
@@ -31,6 +31,16 @@
 // lanes; the second (g @ C_l^T) is an FMA loop over the sub-panel. `ct`
 // (K2) and `w` (K3) are the working buffer for the strip rows not yet
 // eliminated; K2's is also its output, as on the TPU.
+//
+// K6 (lockstep panel factor) replaces
+// gpu_matrix_inversion_tpu/ops/lockstep.py:_lockstep_factor_kernel, called
+// through _panel_factor_lockstep: K2's outputs for one panel of each of k
+// matrices, in one launch. The TPU kernel merged the k matrices into one
+// (k, 2*sub, m) working set, since one TensorCore runs one program at a
+// time; here K2's kernel runs with a grid of k blocks, one per matrix, so
+// the k serial step chains advance on k SMs at once. The contract is the
+// reference's (tests/test_lockstep.py): each matrix's outputs equal, bit for
+// bit, those of K2 run on that matrix alone.
 //
 // What bounds it on an H100: one panel's working set does not fit one SM
 // (2*sub*m values: 512 KiB at m = 4096 in fp32, 2 MiB at m = 65536 in
@@ -104,13 +114,28 @@ size_t smem_bytes(int m, int b, int sub, size_t elt) {
 }
 
 // K2: fp32, pivoting or not (pivot == 0 takes rows kb + r); emits C^T
-// and ok.
+// and ok. kLockstep (K6) runs it on k matrices at once, block i on matrix
+// i's strip, mask, outputs and workspace: the same step chain, so each
+// matrix gets what K2 gives it alone. The batch offsets exist only in that
+// instantiation, so K2's own code is unchanged by it; K2 does not launch
+// K6 with one block, because the offsets make ptxas spill more and that
+// launch runs slower (PERF.md).
+template <bool kLockstep>
 __global__ void __launch_bounds__(kThreads)
 panel_factor_kernel(const float* __restrict__ stripT,
                     const int* __restrict__ used_in, int* __restrict__ pivrows,
                     float* __restrict__ ct, int* __restrict__ ok_out,
                     float* __restrict__ wp, int m, int b, int sub, int kmask,
                     int kb, int pivot) {
+  if constexpr (kLockstep) {
+    const size_t item = blockIdx.x;
+    stripT += item * b * m;
+    used_in += item * m;
+    pivrows += item * b;
+    ct += item * b * m;
+    ok_out += item;
+    wp += item * 2 * sub * m;
+  }
   extern __shared__ float4 smem4[];
   float* col = reinterpret_cast<float*>(smem4);   // (m,)
   float* g = col + m;                             // (b - sub, sub)
@@ -378,11 +403,33 @@ extern "C" int matinv_panel_factor(const float* stripT, const int* used,
                                    void* stream) {
   size_t smem;
   cudaError_t err =
-      configure(reinterpret_cast<const void*>(&panel_factor_kernel), m, b,
-                sub, sizeof(float), &smem);
+      configure(reinterpret_cast<const void*>(&panel_factor_kernel<false>), m,
+                b, sub, sizeof(float), &smem);
   if (err != cudaSuccess) return err;
-  panel_factor_kernel<<<1, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  panel_factor_kernel<false><<<1, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      stripT, used, pivrows, ct, ok, wp, m, b, sub, kmask, kb, pivot);
+  return cudaGetLastError();
+}
+
+// K6. K2 on k matrices, one block each: stripT (k, b, m) float32, matrix
+// i's transposed strip at [i]; used (k, m) int32; pivrows (k, b) int32
+// out; ct (k, b, m) float32 out; ok (k,) int32 out; wp (k, 2*sub, m)
+// float32 workspace. sub, kmask and kb as for K2 (kb is the same for every
+// matrix). Returns the cudaError_t of the launch.
+extern "C" int matinv_lockstep_factor(const float* stripT, const int* used,
+                                      int* pivrows, float* ct, int* ok,
+                                      float* wp, int k, int m, int b, int sub,
+                                      int kmask, int kb, int pivot,
+                                      void* stream) {
+  if (k < 1) return cudaErrorInvalidValue;
+  size_t smem;
+  cudaError_t err =
+      configure(reinterpret_cast<const void*>(&panel_factor_kernel<true>), m,
+                b, sub, sizeof(float), &smem);
+  if (err != cudaSuccess) return err;
+  panel_factor_kernel<true><<<k, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
       stripT, used, pivrows, ct, ok, wp, m, b, sub, kmask, kb, pivot);
   return cudaGetLastError();
 }

@@ -10,31 +10,41 @@ routes to
                split path) + GEMMs; fp64 through K3's f32-search tier
 - ``lu``       LU factorization (K3 + K5) + getri, and :func:`solve`'s
                triangular solves
+- ``ns``       Newton-Schulz iteration (pivot-free, GEMMs only; well-
+               conditioned matrices and warm starts)
 
 ``auto`` picks by shape with the reference's thresholds, unchanged, so
 both packages take the same route on the same input: batched or small
 fp32/bf16 matrices go to ``fused``, large ones to ``blocked``, small FP64
 ones to ``spec``; :func:`solve` takes the LU route from n = 512. The
-reference's ``cholesky``, ``ns`` and ``sharded`` routes are not ported yet
-and raise ``NotImplementedError``.
+reference's ``cholesky`` and ``sharded`` routes are not ported yet and
+raise ``NotImplementedError``. :class:`Inverter` is the config-driven
+session object.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from gpu_matrix_inversion_tpu_torch.models.newton_schulz import (
+    newton_schulz_inverse)
 from gpu_matrix_inversion_tpu_torch.ops import lu as lu_ops
 from gpu_matrix_inversion_tpu_torch.ops.blocked import blocked_inverse
 from gpu_matrix_inversion_tpu_torch.ops.fused import (FUSED_MAX_N,
                                                       fused_inverse)
 from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
     gauss_jordan_inverse)
-from gpu_matrix_inversion_tpu_torch.ops.refine import refine_solve
+from gpu_matrix_inversion_tpu_torch.ops.refine import (newton_schulz_refine,
+                                                       refine_solve)
+from gpu_matrix_inversion_tpu_torch.utils.config import InversionConfig
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
 
 METHODS = ("auto", "spec", "fused", "blocked", "lu", "cholesky", "sharded",
            "ns")
-_NOT_PORTED = ("cholesky", "sharded", "ns")
+_NOT_PORTED = ("cholesky", "sharded")
 _BLOCKED_MIN_N = 512
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -95,6 +105,8 @@ def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
         if a.shape[-1] >= 256:
             return lu_ops.lu_inverse_fast(a)
         return lu_ops.lu_inverse(a)
+    if resolved == "ns":
+        return newton_schulz_inverse(a)
     return gauss_jordan_inverse(a, pivot=pivot)
 
 
@@ -146,3 +158,57 @@ def solve(a: torch.Tensor, b: torch.Tensor, *, method: str = "auto",
     if vec:
         x = x[..., 0]
     return x, ok
+
+
+class Inverter:
+    """Config-driven inversion session (the reference's compile-time
+    ``#define`` variant selection, main_file.cpp:14-18, as a runtime
+    object; port of the JAX package's ``Inverter``).
+
+    Example::
+
+        inv = Inverter(dtype="float32", method="blocked", refine_iters=1)
+        x, ok = inv.inverse(a)
+
+    A tensor stays on its device; anything else (a numpy array, a list)
+    goes to ``device``, the GPU unless the caller asks for ``"cpu"``. The
+    reference's ``mesh`` argument waits for the sharded route.
+    """
+
+    def __init__(self, config: InversionConfig | None = None, *,
+                 device="cuda", **overrides):
+        if config is None:
+            config = InversionConfig.from_env(**overrides)
+        elif overrides:
+            config = dataclasses.replace(config, **overrides)
+        self.config = config.validate()
+        self.device = device
+
+    def _cast(self, a) -> torch.Tensor:
+        dtype = getattr(torch, self.config.dtype)
+        if isinstance(a, torch.Tensor):
+            return a.to(dtype)
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def inverse(self, a):
+        """``(inverse, ok)`` by the configured route; ``refine_iters > 0``
+        adds that many Newton-Schulz steps on top of the route's own (the
+        blocked route then polishes twice, as in the reference)."""
+        cfg = self.config
+        a = self._cast(a)
+        x, ok = inverse(a, method=cfg.method, pivot=cfg.pivot,
+                        block_size=cfg.block_size, precision=cfg.precision,
+                        search_bf16=cfg.search_bf16)
+        if cfg.refine_iters > 0:
+            x = newton_schulz_refine(a, x, iters=cfg.refine_iters)
+            ok = ok & torch.isfinite(x).all(dim=(-2, -1))
+        return x, ok
+
+    def solve(self, a, b):
+        """``(x, ok)`` of ``A x = b`` with the whole session config;
+        refinement happens inside :func:`solve`, reusing the factorization
+        or the inverse."""
+        cfg = self.config
+        a = self._cast(a)
+        return solve(a, b, method=cfg.method, pivot=cfg.pivot,
+                     block_size=cfg.block_size, refine_iters=cfg.refine_iters)

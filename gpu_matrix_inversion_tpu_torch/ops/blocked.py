@@ -37,13 +37,11 @@ outside any Pallas kernel; here they are library GEMMs (see :func:`_mm` for
 their precision). What the reference runs only to steer XLA:TPU and Mosaic
 (optimization barriers, x64 scopes, the v1/v2 kernel split, group-loop
 unrolling, the (8, m) used tile, interpret mode) has no counterpart.
-Lockstep batching (kernel K6) is not ported yet and raises
-``NotImplementedError`` instead of taking another route.
+A batch loops one matrix at a time, unless the opt-in lockstep route
+(``MATINV_LOCKSTEP=1``, ``ops/lockstep.py``, kernel K6) takes it.
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -548,27 +546,97 @@ def _group_factor(og: torch.Tensor, kb0: int, used: torch.Tensor, *,
     dev = og.device
     pivtot = torch.empty(gw, dtype=torch.int32, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
-    probe_cols = torch.arange(b, device=dev)
     for i in range(gsize):
         ib = i * b
         pivrows, ct, ok_f = _factor_panel(og[:, ib:ib + b], kb0 + ib, used,
                                           b=b, precision=precision, **route)
         ok &= ok_f
         pivtot[ib:ib + b] = pivrows
-        rows = pivrows.long()
-        used[rows] = 1
-        # Inject this panel's identity probe columns BEFORE its own update
-        # (prior transforms act as identity on them; the columns were 0).
-        og[rows, gw + ib + probe_cols] = 1.0
-        # Windowed internal update: O columns before this panel are frozen
-        # and G probes beyond it still zero, so the live columns are
-        # og[:, ib : gw+ib+b]. One rank-b GEMM eliminates AND deposits.
-        # The pivot rows are gathered into their own buffer first
-        # (index_select copies) because the update overwrites them.
-        win = og[:, ib:gw + ib + b]
-        block_rows = win.index_select(0, rows)
-        _update(win, ct.t(), block_rows, precision)
+        _apply_panel(og, used, pivrows, ct, ib=ib, gw=gw, precision=precision)
     return pivtot, ok
+
+
+def _apply_panel(og: torch.Tensor, used: torch.Tensor, pivrows: torch.Tensor,
+                 ct: torch.Tensor, *, ib: int, gw: int,
+                 precision: str) -> None:
+    """Apply one factored panel (pivot rows, C^T) to the [O | G] working
+    set ``og`` in place, and mark its pivot rows in ``used``."""
+    b = pivrows.shape[0]
+    rows = pivrows.long()
+    used[rows] = 1
+    # Inject this panel's identity probe columns BEFORE its own update
+    # (prior transforms act as identity on them; the columns were 0).
+    og[rows, torch.arange(gw + ib, gw + ib + b, device=og.device)] = 1.0
+    # Windowed internal update: O columns before this panel are frozen and
+    # G probes beyond it still zero, so the live columns are
+    # og[:, ib : gw+ib+b]. One rank-b GEMM eliminates AND deposits. The
+    # pivot rows are gathered into their own buffer first (index_select
+    # copies) because the update overwrites them.
+    win = og[:, ib:gw + ib + b]
+    block_rows = win.index_select(0, rows)
+    _update(win, ct.t(), block_rows, precision)
+
+
+def _group_sizes(m: int, b: int, group_size: int) -> list[int]:
+    """Panels in each composite group: full groups, then the tail."""
+    num_panels = m // b
+    group = max(1, min(group_size, num_panels))
+    num_groups, tail = divmod(num_panels, group)
+    return [group] * num_groups + ([tail] if tail else [])
+
+
+def _augment(a: torch.Tensor, m: int) -> torch.Tensor:
+    """The driver's one (m, 2m) buffer, updated in place throughout. Left
+    half: the A working set padded to blockdiag(A, I) (padded rows are
+    zero in real columns, so they never win a pivot). Right half: the
+    composite-transform columns in PIVOT ORDER (slot t tracks the t-th
+    pivot row), deposited as each group finishes, so at the group starting
+    at column kb0 the live columns are exactly [kb0+gw, m+kb0) -- one
+    contiguous window of width m-gw."""
+    n = a.shape[-1]
+    aug = torch.zeros((m, 2 * m), dtype=a.dtype, device=a.device)
+    aug[:n, :n] = a
+    pad = torch.arange(n, m, device=a.device)
+    aug[pad, pad] = 1.0
+    return aug
+
+
+def _group_start(aug: torch.Tensor, kb0: int, gw: int) -> torch.Tensor:
+    """The [O | G] working set of the group at column kb0: its columns of
+    ``aug``, then gw zero probe columns."""
+    og = torch.zeros((aug.shape[0], 2 * gw), dtype=aug.dtype,
+                     device=aug.device)
+    og[:, :gw] = aug[:, kb0:kb0 + gw]
+    return og
+
+
+def _apply_group(aug: torch.Tensor, og: torch.Tensor, pivtot: torch.Tensor,
+                 *, kb0: int, precision: str) -> None:
+    """Apply a finished group to ``aug`` in place: its composite transform
+    C = G - E^T to the live window [kb0+gw, m+kb0) in one rank-gw GEMM,
+    then the finished O to the group's columns and G to its slots."""
+    m = aug.shape[0]
+    gw = pivtot.shape[0]
+    # The pivot rows of the window are gathered into their own buffer
+    # first, because the update overwrites them.
+    rows = pivtot.long()
+    c = og[:, gw:].clone()
+    c[rows, torch.arange(gw, device=aug.device)] -= 1.0
+    if m > gw:
+        win = aug[:, kb0 + gw:kb0 + m]
+        _update(win, c, win.index_select(0, rows), precision)
+    aug[:, kb0:kb0 + gw] = og[:, :gw]
+    aug[:, m + kb0:m + kb0 + gw] = og[:, gw:]
+
+
+def _unpermute(aug: torch.Tensor, pos: torch.Tensor, n: int) -> torch.Tensor:
+    """Undo the logical permutation once: slot t is inverse column pos[t]
+    and inverse row g lives at row pos[g]."""
+    m = aug.shape[0]
+    rows = pos.long()
+    invpos = torch.empty_like(rows)
+    invpos[rows] = torch.arange(m, device=aug.device)
+    return aug[:, m:].index_select(1, invpos).index_select(0, rows)[:n, :n]
 
 
 def _blocked_gj(a: torch.Tensor, *, pivot: bool, b: int, group_size: int,
@@ -577,20 +645,7 @@ def _blocked_gj(a: torch.Tensor, *, pivot: bool, b: int, group_size: int,
     n = a.shape[-1]
     m = max(_round_up(n, b), b)
     dev, dtype = a.device, a.dtype
-    # One (m, 2m) buffer, updated in place throughout. Left half: the A
-    # working set padded to blockdiag(A, I) (padded rows are zero in real
-    # columns, so they never win a pivot). Right half: the composite-
-    # transform columns in PIVOT ORDER (slot t tracks the t-th pivot row),
-    # deposited as each group finishes, so at group kk the live columns are
-    # exactly [kb0+gw, m+kb0) -- one contiguous window of width m-gw.
-    aug = torch.zeros((m, 2 * m), dtype=dtype, device=dev)
-    aug[:n, :n] = a
-    pad = torch.arange(n, m, device=dev)
-    aug[pad, pad] = 1.0
-    num_panels = m // b
-    group = max(1, min(group_size, num_panels))
-    num_groups, tail = divmod(num_panels, group)
-    sizes = [group] * num_groups + ([tail] if tail else [])
+    aug = _augment(a, m)
     # The FP64 f32-search tier where the f32 search reaches (blocked.py:
     # 940-942); single-chip only, as in the reference.
     route = dict(pivot=pivot, use_kernels=use_kernels,
@@ -604,33 +659,16 @@ def _blocked_gj(a: torch.Tensor, *, pivot: bool, b: int, group_size: int,
     pos = torch.arange(m, dtype=torch.int32, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     kb0 = 0
-    for gsize in sizes:
+    for gsize in _group_sizes(m, b, group_size):
         gw = gsize * b
-        og = torch.zeros((m, 2 * gw), dtype=dtype, device=dev)
-        og[:, :gw] = aug[:, kb0:kb0 + gw]
+        og = _group_start(aug, kb0, gw)
         pivtot, ok_g = _group_factor(og, kb0, used, gsize=gsize, gw=gw,
                                      b=b, precision=precision, **route)
         ok &= ok_g
         pos[kb0:kb0 + gw] = pivtot
-        # Composite transform C = G - E^T, applied to the live window
-        # [kb0+gw, m+kb0) in one rank-gw GEMM, in place. The pivot rows of
-        # the window are gathered into their own buffer first.
-        rows = pivtot.long()
-        c = og[:, gw:].clone()
-        c[rows, torch.arange(gw, device=dev)] -= 1.0
-        if m > gw:
-            win = aug[:, kb0 + gw:kb0 + m]
-            _update(win, c, win.index_select(0, rows), precision)
-        # The group's own left columns get the finished O; its slots get G.
-        aug[:, kb0:kb0 + gw] = og[:, :gw]
-        aug[:, m + kb0:m + kb0 + gw] = og[:, gw:]
+        _apply_group(aug, og, pivtot, kb0=kb0, precision=precision)
         kb0 += gw
-    # Undo the logical permutation once: slot t is inverse column pos[t]
-    # and inverse row g lives at row pos[g].
-    rows = pos.long()
-    invpos = torch.empty_like(rows)
-    invpos[rows] = torch.arange(m, device=dev)
-    inv = aug[:, m:].index_select(1, invpos).index_select(0, rows)[:n, :n]
+    inv = _unpermute(aug, pos, n)
     ok &= torch.isfinite(inv).all()
     return inv, ok
 
@@ -660,7 +698,10 @@ def blocked_inverse(a: torch.Tensor, *, pivot: bool = True,
 
     fp32 factors through the panel kernels, fp64 through the f32-search
     tier or the plain logical panel (see the module docstring). bf16 input
-    computes in fp32 and returns bf16. A batch loops one matrix at a time.
+    computes in fp32 and returns bf16. A batch loops one matrix at a time;
+    with ``MATINV_LOCKSTEP=1`` an fp32 batch in K2's reach goes through
+    :func:`~gpu_matrix_inversion_tpu_torch.ops.lockstep.lockstep_inverse`,
+    with the same result bit for bit.
     """
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"expected (..., n, n) square matrix, got "
@@ -677,15 +718,22 @@ def blocked_inverse(a: torch.Tensor, *, pivot: bool = True,
     b, use_kernels, search_bf16 = _select_block_params(
         n, block_size, a.dtype, search_bf16)
     m = max(_round_up(n, b), b)
-    if (a.ndim > 2 and use_kernels and not search_bf16
-            and os.environ.get("MATINV_LOCKSTEP") == "1"):
-        raise NotImplementedError(
-            "MATINV_LOCKSTEP=1 needs the lockstep kernel K6 (ROADMAP "
-            "Queue 2, K6), not ported yet")
     if group_size is None:
         group_size = _default_group_size(b, m // b)
 
     flat = a.reshape(-1, n, n)
+    if a.ndim > 2 and use_kernels and not search_bf16:
+        # The opt-in (MATINV_LOCKSTEP=1) lockstep route (blocked.py:
+        # 1175-1192): k matrices per K6 launch, one block each;
+        # _lockstep_k returns 0 unless opted in.
+        from gpu_matrix_inversion_tpu_torch.ops.lockstep import (
+            _lockstep_k, lockstep_inverse)
+        k = _lockstep_k(flat.shape[0], n, b, a.dtype)
+        if k:
+            inv, ok = lockstep_inverse(flat, pivot=pivot, b=b, k=k,
+                                       precision=precision,
+                                       group_size=group_size, refine=refine)
+            return inv.reshape(a.shape), ok.reshape(a.shape[:-2])
     invs, oks = [], []
     for one in flat:
         with matmul_precision(precision):

@@ -40,6 +40,12 @@ SIGNATURES = {
     "matinv_small_inv": (_P, _P, _P, _I, _I, _I, _P),
     # a, out, ok, batch, b, stream
     "matinv_small_lu": (_P, _P, _P, _I, _I, _P),
+    # stripT, used, pivrows, ct, ok, wp, k, m, b, sub, kmask, kb, pivot,
+    # stream
+    "matinv_lockstep_factor": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
+    # a, b, c, m, n, k, bf16, stream
+    "matinv_tiled_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None

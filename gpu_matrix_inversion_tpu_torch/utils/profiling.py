@@ -1,9 +1,12 @@
-"""Observability: the startup device dump and the per-phase report.
+"""Observability: the startup device dump, the per-phase report and the
+device-time breakdown of one call.
 
 Port of the two pieces of ``gpu_matrix_inversion_tpu/utils/profiling.py``
 that the verbose ``matrix_inversion_fp32`` path uses. The reference prints
 its CL_DEVICE_* attributes at startup and a per-phase trace with derived
 GFLOPS afterwards (``matrix_inversion_FP32.cpp:304-333``, ``:711-723``).
+:func:`device_kernels` serves the measurement scripts (``chip_smoke.py``,
+``probes/``).
 """
 
 from __future__ import annotations
@@ -62,3 +65,26 @@ def print_phase_report(res, order: int, out=None) -> None:
         print(f"  {'gflops(4N^3)':>14}: {4 * order**3 / tc / 1e9:10.1f}",
               file=out)
     print(f"  {'status':>14}: {'ok' if res.ok else 'FAILED'}", file=out)
+
+
+def device_kernels(fn) -> list[tuple[str, int, float]]:
+    """(name, launches, ms) of every kernel and copy one call of ``fn``
+    ran on the device, from ``torch.profiler``, largest device time first.
+    Their sum is the call's device time; the rest of its time on the host
+    clock the device waited. Raises if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # Kernel and memcpy entries only: an operator's own entry would count
+    # its kernels' time a second time.
+    rows = [(e.key, e.count,
+             getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda row: -row[2])
+    if not rows or rows[0][2] <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return rows

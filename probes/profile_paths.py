@@ -1,4 +1,5 @@
-"""Device-time breakdown of the port's blocked, split, FP64 and LU paths.
+"""Device-time breakdown of the port's blocked, split, FP64, LU and batch
+paths.
 
     python3 -m probes.profile_paths
 
@@ -9,26 +10,35 @@ kernels in the profiled call, the device's idle share (1 - device time /
 host time; one stream, so kernels do not overlap), and
 the ten top entries by self device time (``key_averages``). The inputs are
 the hollow protocol matrices ``chip_smoke.py`` uses: 4096^2 seed 1 in FP32
-and FP64, and 20000^2 seed 20000. Needs a CUDA device; imports no JAX.
+and FP64, 20000^2 seed 20000, and the (16, 1024^2) and (8, 2048^2)
+batches (seeds n + i), each batch once per matrix and once through the
+lockstep route (``MATINV_LOCKSTEP=1``). Needs a CUDA device; imports no
+JAX.
 """
 
 from __future__ import annotations
 
+import os
 import subprocess
 import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from gpu_matrix_inversion_tpu_torch import inverse, solve
 from gpu_matrix_inversion_tpu_torch.utils.generators import (
     hollow_random_matrix)
+from gpu_matrix_inversion_tpu_torch.utils.profiling import device_kernels
 
 
-def _device_us(evt) -> float:
-    return float(getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0)))
+def _lockstep(fn):
+    """``fn`` run with the lockstep route opted in."""
+    def run():
+        os.environ["MATINV_LOCKSTEP"] = "1"
+        try:
+            return fn()
+        finally:
+            del os.environ["MATINV_LOCKSTEP"]
+    return run
 
 
 def _paths(dev):
@@ -39,7 +49,17 @@ def _paths(dev):
     rhs = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (4096, 16)).astype(np.float32)).to(dev)
     x20k = torch.from_numpy(hollow_random_matrix(20000, seed=20000)).to(dev)
-    return [
+    batches = {(bsz, n): torch.from_numpy(np.stack([
+        hollow_random_matrix(n, seed=n + i) for i in range(bsz)])).to(dev)
+        for bsz, n in ((16, 1024), (8, 2048))}
+    per_batch = []
+    for (bsz, n), xs in batches.items():
+        per_batch += [
+            (f"inverse, FP32 ({bsz}, {n}, {n}), per matrix",
+             lambda xs=xs: inverse(xs)),
+            (f"inverse, FP32 ({bsz}, {n}, {n}), lockstep",
+             _lockstep(lambda xs=xs: inverse(xs)))]
+    return per_batch + [
         ("inverse, FP64 4096^2", lambda: inverse(x4k64)),
         ("inverse, FP32 20000^2 (split path)", lambda: inverse(x20k)),
         ("inverse, FP32 4096^2, search_bf16=True",
@@ -64,26 +84,15 @@ def main() -> None:
         fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        # Kernel and memcpy entries only: an operator's own entry would
-        # count its kernels' time a second time.
-        events = sorted((e for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA),
-                        key=_device_us, reverse=True)
-        if not events:
-            raise SystemExit("the profiler recorded no device events")
-        device_ms = sum(_device_us(e) for e in events) / 1e3
+        rows = device_kernels(fn)
+        device_ms = sum(ms for _, _, ms in rows)
         print(f"\n== {label}: host {host_ms:.2f} ms, device {device_ms:.2f} "
               f"ms, idle share {1 - device_ms / host_ms:.3f}")
-        for e in events[:10]:
-            us = _device_us(e)
-            if us <= 0:
+        for name, count, ms in rows[:10]:
+            if ms <= 0:
                 break
-            print(f"  {us / 1e3:10.3f} ms {100 * us / 1e3 / device_ms:6.1f}% "
-                  f"{e.count:7d}x  {e.key[:90]}")
+            print(f"  {ms:10.3f} ms {100 * ms / device_ms:6.1f}% "
+                  f"{count:7d}x  {name[:90]}")
 
 
 if __name__ == "__main__":

@@ -21,13 +21,12 @@ import json
 import subprocess
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 import gpu_matrix_inversion_tpu_torch
 from gpu_matrix_inversion_tpu_torch.ops.blocked import blocked_inverse
 from gpu_matrix_inversion_tpu_torch.utils.generators import (
     hollow_random_matrix)
+from gpu_matrix_inversion_tpu_torch.utils.profiling import device_kernels
 
 
 def _call_ms(fn) -> float:
@@ -38,20 +37,6 @@ def _call_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
-
-
-def _device_profile(fn) -> list[tuple[str, int, float]]:
-    """(name, launches, ms) of every kernel and copy of one call,
-    largest device time first."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(e.key[:80], e.count,
-             getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sorted(rows, key=lambda row: -row[2])
 
 
 def main() -> None:
@@ -68,9 +53,9 @@ def main() -> None:
         out[key] = [_call_ms(lambda: blocked_inverse(x, refine=refine))
                     for _ in range(5)]
     for key, refine in (("raw_device_ms", 0), ("refined_device_ms", 1)):
-        rows = _device_profile(lambda: blocked_inverse(x, refine=refine))
+        rows = device_kernels(lambda: blocked_inverse(x, refine=refine))
         out[key] = sum(row[2] for row in rows)
-    out["top"] = rows[:5]
+    out["top"] = [(name[:80], count, ms) for name, count, ms in rows[:5]]
     print(json.dumps(out))
 
 

@@ -208,7 +208,7 @@ def test_auto_routes_past_the_first_slice_like_jax(n, dtype):
         assert not tblocked._emit_fused(m, b, use_kernels, search_bf16)
 
 
-@pytest.mark.parametrize("method", ["cholesky", "ns", "sharded"])
+@pytest.mark.parametrize("method", ["cholesky", "sharded"])
 def test_unported_methods_raise(method):
     with pytest.raises(NotImplementedError):
         tmi.inverse(torch.eye(8), method=method)

@@ -182,12 +182,3 @@ def test_geometry_matches_jax(n):
     assert (tblocked._select_block_params(n, 256, torch.float64, False)
             == jblocked._select_block_params(n, 256, jnp.float64, False))
 
-
-@pytest.mark.parametrize("case", ["lockstep"])
-def test_blocked_raises_where_the_slice_ends(case, monkeypatch):
-    """Where the reference leaves this slice the port raises, naming the
-    kernel it needs, instead of taking another route."""
-    monkeypatch.setenv("MATINV_LOCKSTEP", "1")
-    a = torch.eye(64).expand(2, 64, 64)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tblocked.blocked_inverse(a)

@@ -10,7 +10,8 @@ pytest worker collects the same tests). On a machine with the card:
 need not have.)
 
 Tolerances as in ``chip_smoke.py``: pivot sequences identical, ok equal,
-values within 1e-4 of max|twin|.
+values within 1e-4 of max|twin|; K6 bit for bit against K2 and its twin on
+the CPU; K7 as its test states.
 """
 
 import numpy as np
@@ -147,6 +148,133 @@ def test_new_paths_launch_their_kernels(cuda):
     b = torch.ones(1024, 2, device=cuda)
     x, ok = solve(torch.from_numpy(a32).to(cuda), b)
     assert bool(ok) and x.shape == (1024, 2)
+
+
+@pytest.mark.parametrize("case", ["empty", "prior", "no_pivot"])
+@pytest.mark.parametrize("k,m", [(8, 1024), (4, 2048)])
+def test_k6_equals_k2_per_matrix(cuda, k, m, case):
+    """K6 at the lockstep gate's full shapes (b = 128): per matrix, bit
+    for bit what K2 gives on that matrix alone, and what the twin gives on
+    the CPU; against the twin on the card, K2's tolerance (pivot rows
+    identical, C^T within 1e-4: there the twin's deferred dot is a cuBLAS
+    product, which sums in another order at m = 1024)."""
+    from gpu_matrix_inversion_tpu_torch.ops import lockstep
+    b = 128
+    rng = np.random.default_rng(k * m)
+    strips = torch.from_numpy(
+        rng.standard_normal((k, b, m)).astype(np.float32)).to(cuda)
+    used = torch.zeros((k, m), dtype=torch.int32, device=cuda)
+    kb, pivot = 0, case != "no_pivot"
+    if case == "prior":
+        for i in range(k):
+            used[i, blocked.panel_factor(strips[i], 0, used[i],
+                                         pivot=True)[0].long()] = 1
+        kb = b
+    elif case == "no_pivot":
+        strips[:, :, :b] += b * torch.eye(b, device=cuda)
+    before = lockstep.lockstep_factor.launches
+    p6, ct6, ok6 = lockstep.lockstep_factor(strips, kb, used, pivot=pivot)
+    assert lockstep.lockstep_factor.launches == before + 1
+    p_t, ct_t, ok_t = lockstep.lockstep_factor_twin(strips, kb, used,
+                                                    pivot=pivot)
+    for i in range(k):
+        p2, ct2, ok2 = blocked.panel_factor(strips[i], kb, used[i],
+                                            pivot=pivot)
+        assert torch.equal(p6[i], p2) and torch.equal(ct6[i], ct2)
+        assert bool(ok6[i]) == bool(ok2)
+    p_c, ct_c, ok_c = lockstep.lockstep_factor_twin(
+        strips.cpu(), kb, used.cpu(), pivot=pivot)
+    assert torch.equal(p6.cpu(), p_c) and torch.equal(ct6.cpu(), ct_c)
+    assert ok6.tolist() == ok_c.tolist()
+    assert torch.equal(p6, p_t) and _rel(ct6, ct_t) <= 1e-4
+    assert ok6.tolist() == ok_t.tolist() == [True] * k
+
+
+@pytest.mark.parametrize("shape", [(300, 200, 150), (1024, 512, 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_matches_twin(cuda, shape, dtype):
+    """K7's output in the operands' dtype (edge tiles at 300 x 200 x 150).
+    fp32: within matmul.fp32_error_bound of the float64 product, which a
+    TF32 product and one of bf16-rounded operands both exceed on most
+    elements. bf16: within matmul.error_bound of its twin."""
+    from gpu_matrix_inversion_tpu_torch.ops import matmul
+    from gpu_matrix_inversion_tpu_torch.utils.precision import (
+        matmul_precision)
+    m, k, n = shape
+    rng = np.random.default_rng(m)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(cuda).to(dtype)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(
+        np.float32)).to(cuda).to(dtype)
+    before = matmul.tiled_matmul.launches
+    out = matmul.tiled_matmul(a, b)
+    assert matmul.tiled_matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    if dtype == torch.bfloat16:
+        twin = matmul.tiled_matmul_twin(a, b)
+        diff = (out.float() - twin.float()).abs()
+        assert bool((diff <= matmul.error_bound(a, b)).all())
+        return
+    exact = a.double() @ b.double()
+    tol = matmul.fp32_error_bound(a, b)
+    assert bool(((out.double() - exact).abs() <= tol).all())
+    with matmul_precision("high"):
+        tf32 = a @ b
+    rounded = matmul.tiled_matmul(a.bfloat16().float(), b.bfloat16().float())
+    for control in (tf32, rounded):
+        over = (control.double() - exact).abs() > tol
+        assert float(over.double().mean()) > 0.5
+
+
+def test_lockstep_route_launches_k6(cuda, monkeypatch):
+    """MATINV_LOCKSTEP=1 on a (5, 1024, 1024) batch: K6 only (k = 5, eight
+    panels), equal bit for bit to the per-matrix route, refined residuals
+    <= 1e-6, and a singular member flagged alone."""
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.ops import lockstep
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    batch = np.stack([hollow_random_matrix(1024, seed=30 + i)
+                      for i in range(5)])
+    batch[3] = 1.0
+    x = torch.from_numpy(batch).to(cuda)
+    off, ok_off = inverse(x)
+    monkeypatch.setenv("MATINV_LOCKSTEP", "1")
+    k2, k6 = blocked.panel_factor.launches, lockstep.lockstep_factor.launches
+    on, ok_on = inverse(x)
+    assert blocked.panel_factor.launches == k2
+    assert lockstep.lockstep_factor.launches == k6 + 8
+    # Bit for bit; the singular member's output may hold NaNs, which
+    # torch.equal never calls equal.
+    torch.testing.assert_close(on, off, rtol=0, atol=0, equal_nan=True)
+    assert ok_on.tolist() == ok_off.tolist() == [True] * 3 + [False, True]
+    keep = [0, 1, 2, 4]
+    a64, x64 = x[keep].double(), on[keep].double()
+    eye = torch.eye(1024, dtype=torch.float64, device=cuda)
+    res = (torch.linalg.matrix_norm(a64 @ x64 - eye)
+           / (torch.linalg.matrix_norm(a64) * torch.linalg.matrix_norm(x64)))
+    assert float(res.max()) <= 1e-6
+
+
+def test_ns_and_inverter(cuda):
+    """inverse(method="ns") and Inverter on the card: the JAX package's
+    gates (residual <= 1e-5, ok false on a singular input)."""
+    from gpu_matrix_inversion_tpu_torch import Inverter, inverse
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix, well_conditioned_matrix)
+    from gpu_matrix_inversion_tpu_torch.utils.residual import (
+        relative_residual)
+    w = well_conditioned_matrix(512, seed=92)
+    x, ok = inverse(torch.from_numpy(w).to(cuda), method="ns")
+    assert bool(ok) and relative_residual(w, x.cpu().numpy()) < 1e-5
+    _, ok = inverse(torch.ones(256, 256, device=cuda), method="ns")
+    assert not bool(ok)
+    h = hollow_random_matrix(1024, seed=93)
+    for method in ("blocked", "ns"):
+        src = w if method == "ns" else h
+        x, ok = Inverter(method=method, refine_iters=1).inverse(src)
+        assert x.device.type == "cuda"
+        assert bool(ok) and relative_residual(src, x.cpu().numpy()) < 1e-5
 
 
 def test_k1_flags_singular_and_nan(cuda):
