@@ -15,6 +15,10 @@ the bf16-search blocked call, the LU route (``inverse`` with
 the opt-in lockstep route (``MATINV_LOCKSTEP=1``, K6) on (16, 1024^2) and
 (8, 2048^2) batches against the per-matrix route, K7 as the verification
 GEMM of the 4096^2 inverse, ``inverse(method="ns")`` and ``Inverter``.
+The fourth slice redesigned K7 (bf16 on the tensor cores, fp32 as a
+pipelined FMA loop; checked also at ragged, stride-padded and k = 0
+shapes) and K5 (the block in registers; checked at b = 128, 64, 40, 8),
+and times both by CUDA events and by the profiler's device time.
 Each path runs with the kernels' launch counts zeroed just before it and
 read just after, and must have launched its kernels. It checks residual
 gates, repeat-run determinism, and times the kernels beside their twins,
@@ -53,21 +57,6 @@ def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
     log(f"  ok: {msg}")
-
-
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device milliseconds per call, by CUDA events after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # Published peaks of one H100 SXM at 700 W: FP32 outside the tensor cores
@@ -139,15 +128,6 @@ def lockstep_on():
             os.environ["MATINV_LOCKSTEP"] = prev
 
 
-def device_ms(fn) -> float:
-    """Summed device time of one call's kernels and copies (after a
-    warm-up call), from torch.profiler."""
-    from gpu_matrix_inversion_tpu_torch.utils.profiling import device_kernels
-    fn()
-    torch.cuda.synchronize()
-    return sum(ms for _, _, ms in device_kernels(fn))
-
-
 def batched_residual(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """relative_residual (utils/residual.py) per matrix of a batch, in
     float64 on the card: ||A X - I||_F / (||A||_F ||X||_F)."""
@@ -174,6 +154,10 @@ def main() -> None:
         hollow_random_matrix, well_conditioned_matrix)
     from gpu_matrix_inversion_tpu_torch.utils.precision import (
         matmul_precision)
+    # events_ms: CUDA events around the calls, after a warm-up; device_ms:
+    # the profiler's device time, None ("not measured") if it saw none.
+    from gpu_matrix_inversion_tpu_torch.utils.profiling import (
+        device_ms, events_ms)
     from gpu_matrix_inversion_tpu_torch.utils.residual import (
         relative_residual)
 
@@ -331,14 +315,28 @@ def main() -> None:
     # pivot order makes the blocks getrf hands it), so that many blocks are
     # in flight at once and K4 swaps rows at nearly every step, and one
     # singular block.
+    # K5 also at b = 64, 40 and 8, which leave warps, row slots and column
+    # slots of its register layout empty. The 1e-4 of max|twin| is far
+    # wider than K5's own error, so K5 is also held elementwise to its twin
+    # run on the CPU: every element goes through the same operations in the
+    # same order in both, and they part only where the twin's float64
+    # emulation of fmaf rounds twice (a halfway case, about once in 2^28
+    # updates), by an ulp or so of the values the element went through,
+    # which are of order one (standard normal entries, multipliers below
+    # one). So |K5 - twin| <= 1e-6 (|twin| + 1), about 16 ulps of one; one
+    # skipped update (f a_rj, with f ~ 1/b) or a multiplier off by a
+    # percent moves some element by 1e-4 or more. The elements whose bits
+    # differ from the twin's are counted, and at most one in a thousand may:
+    # a division or update that rounds otherwise than K5's parts from the
+    # twin by an ulp in far more.
     phase("phase 4c: K4 small_inv and K5 small_lu vs their twins")
     k4_abs = k5_abs = 0.0
+    k4 = (blocked.invert_small,
+          lambda x: blocked.invert_small_twin(x, pivot=True))
     for name, b, kernel, twin in (
-            ("K4 b=64", 64, blocked.invert_small,
-             lambda x: blocked.invert_small_twin(x, pivot=True)),
-            ("K4 b=128", 128, blocked.invert_small,
-             lambda x: blocked.invert_small_twin(x, pivot=True)),
-            ("K5 b=128", 128, lu.small_lu, lu.small_lu_twin)):
+            ("K4 b=64", 64, *k4), ("K4 b=128", 128, *k4),
+            *((f"K5 b={b}", b, lu.small_lu, lu.small_lu_twin)
+              for b in (128, 64, 40, 8))):
         d = rng.standard_normal((257, b, b)).astype(np.float32)
         if name.startswith("K5"):
             d += b * np.eye(b, dtype=np.float32)
@@ -360,6 +358,19 @@ def main() -> None:
         check(ok_k.tolist() == ok_t.tolist() == [True] * 256 + [False],
               f"{name}: ok equal (256 true, the singular block false)")
         check(d_rel <= 1e-4, f"{name}: values within 1e-4")
+        if name.startswith("K4"):
+            continue
+        got, want = out_k[:-1].cpu(), lu.small_lu_twin(x[:-1].cpu())[0]
+        scaled = float(((got.double() - want.double()).abs()
+                        / (want.double().abs() + 1)).max()) / 1e-6
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        log(f"  {name}: against the twin on the CPU, {differ} of "
+            f"{got.numel()} elements differ in their bits; at most "
+            f"{scaled:.4f} of 1e-6 (|twin| + 1)")
+        check(scaled <= 1.0, f"{name}: every element within 1e-6 (|twin| + 1) "
+              f"of the twin on the CPU")
+        check(differ * 1000 <= got.numel(),
+              f"{name}: at most 1 in 1000 elements differ in their bits")
 
     # ---- phase 4d: K6 against K2 run per matrix, and its twin -----------
     # Tolerance: bit for bit against K2 run on each matrix alone and against
@@ -423,32 +434,50 @@ def main() -> None:
     # most elements: two controls below must fail it). bf16:
     # matmul.error_bound against the twin (both sum exact products in fp32,
     # in other orders, then may round to neighbouring bf16 values). 4096^3
-    # (the timed shape) and 300 x 200 @ 200 x 150 (edge tiles).
+    # (the timed shape), 300 x 200 @ 200 x 150 (edge tiles; B's rows are
+    # not 16-byte multiples), 1000 x 1001 @ 1001 x 999 (k and n not
+    # multiples of 8: both operands take the stride-pad copy), and k = 0
+    # (zeros; fp32 exactly, so no controls).
     phase("phase 4e: K7 tiled_matmul vs its twin")
-    k7_abs = 0.0
+    k7_abs = k7_abs_bf16 = 0.0
     big = [torch.from_numpy(rng.standard_normal((4096, 4096)).astype(
         np.float32)).to(dev) for _ in range(2)]
-    small = [torch.from_numpy(rng.standard_normal(shape).astype(
-        np.float32)).to(dev) for shape in ((300, 200), (200, 150))]
-    for label, (ga, gb) in (("4096x4096 @ 4096x4096", big),
-                            ("300x200 @ 200x150", small)):
+    shapes = {"300x200 @ 200x150": (300, 200, 150),
+              "1000x1001 @ 1001x999": (1000, 1001, 999),
+              "64x0 @ 0x48": (64, 0, 48)}
+    operands = {"4096x4096 @ 4096x4096": big, **{
+        label: [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for shape in ((m, k), (k, n))]
+        for label, (m, k, n) in shapes.items()}}
+    for label, (ga, gb) in operands.items():
         for dtype in (torch.float32, torch.bfloat16):
             xa, xb = ga.to(dtype), gb.to(dtype)
+            padded = matmul.tiled_matmul.padded
             out = matmul.tiled_matmul(xa, xb)
             torch.cuda.synchronize()
+            padded = matmul.tiled_matmul.padded - padded
             twin = matmul.tiled_matmul_twin(xa, xb)
-            diff = float((out.float() - twin.float()).abs().max())
+            err = (out.float() - twin.float()).abs()
+            diff = float(err.max())
             name = f"{label} {str(dtype)[6:]}"
-            if dtype == torch.float32 and label.startswith("4096"):
-                k7_abs = diff
             check(out.dtype == dtype and out.shape == twin.shape,
                   f"K7 {name}: dtype and shape")
             if dtype == torch.bfloat16:
-                worst = float(((out.float() - twin.float()).abs()
-                               / matmul.error_bound(xa, xb)).max())
-                log(f"  {name}: max abs {diff:.3e} against the twin, at "
-                    f"most {worst:.3f} of matmul.error_bound")
-                check(worst <= 1.0, f"K7 {name}: within the bound")
+                k7_abs_bf16 = max(k7_abs_bf16, diff)
+                tol = matmul.error_bound(xa, xb)
+                worst = float((err / tol)[tol > 0].max()) if bool(
+                    (tol > 0).any()) else 0.0
+                log(f"  {name}: {padded} stride-pad copies; max abs "
+                    f"{diff:.3e} against the twin, at most {worst:.3f} of "
+                    f"matmul.error_bound")
+                check(bool((err <= tol).all()),
+                      f"K7 {name}: within the bound")
+                continue
+            k7_abs = max(k7_abs, diff)
+            if xa.shape[1] == 0:
+                log(f"  {name}: {padded} stride-pad copies")
+                check(not bool(out.any()) and bits_equal(out, twin),
+                      f"K7 {name}: zeros, bit-identical to the twin")
                 continue
             exact = xa.double() @ xb.double()
             tol = matmul.fp32_error_bound(xa, xb)
@@ -461,8 +490,9 @@ def main() -> None:
                                ("bf16-operand control", matmul.tiled_matmul(
                                    xa.bfloat16().float(),
                                    xb.bfloat16().float())))}
-            log(f"  {name}: max abs {diff:.3e} against the twin "
-                f"(bit-identical: {bits_equal(out, twin)}); against the "
+            log(f"  {name}: {padded} stride-pad copies; max abs "
+                f"{diff:.3e} against the twin (bit-identical: "
+                f"{bits_equal(out, twin)}); against the "
                 f"float64 product, at most this share of fp32_error_bound "
                 f"(elements over it): " + ", ".join(
                     f"{key} {float(r.max()):.3f} "
@@ -475,7 +505,22 @@ def main() -> None:
                       f"K7 {name}: the {key} fails fp32_error_bound on most "
                       f"elements")
             del exact, tol, tf32, ratios
-    del small, out, twin
+    # A one-row view of a wider tensor counts as contiguous whatever its
+    # row stride; read in place, its row's last 16-byte unit would bring
+    # in what lies past its k columns, inf here (0 * inf would poison the
+    # row), so the wrapper copies it.
+    ga, gb = operands["1000x1001 @ 1001x999"]
+    for dtype in (torch.float32, torch.bfloat16):
+        wide = torch.full((1, 1008), float("inf"), dtype=dtype, device=dev)
+        wide[:, :1001] = ga[:1]
+        xa, xb = wide[:, :1001], gb.to(dtype)
+        out = matmul.tiled_matmul(xa, xb)
+        diff = (out.float() - matmul.tiled_matmul_twin(xa, xb).float()).abs()
+        check(bool(torch.isfinite(out).all())
+              and bool((diff <= matmul.error_bound(xa, xb)).all()),
+              f"K7 1x1001 view of a 1x1008 row with inf past k, "
+              f"{str(dtype)[6:]}: finite, within matmul.error_bound")
+    del operands, out, wide
 
     # ---- phase 5: the main path through the public API ------------------
     phase("phase 5: main path (matrix_inv_32 / inverse on cuda)")
@@ -754,50 +799,50 @@ def main() -> None:
     # ---- phase 7: timings -----------------------------------------------
     phase(f"phase 7: timings (CUDA events, after warm-up) on {card}")
     times = {}
-    times["k1_batch4096_ms"] = cuda_ms(
+    times["k1_batch4096_ms"] = events_ms(
         lambda: fused.gj_kernel(xb, pivot=True), iters=5)
-    times["k1_twin_batch4096_ms"] = cuda_ms(
+    times["k1_twin_batch4096_ms"] = events_ms(
         lambda: fused.gj_twin(xb, pivot=True), iters=1)
-    times["k1_library_inv_batch4096_ms"] = cuda_ms(
+    times["k1_library_inv_batch4096_ms"] = events_ms(
         lambda: torch.linalg.inv(xb), iters=5)
-    times["fused_inverse_batch4096_ms"] = cuda_ms(lambda: inverse(xb),
-                                                  iters=5)
+    times["fused_inverse_batch4096_ms"] = events_ms(lambda: inverse(xb),
+                                                    iters=5)
     # K1's global-workspace branch on a batch that fills the card: 512
     # (256, 512) workspaces, 268 MB, far past the 50 MB L2.
     xw = torch.from_numpy(
         rng.standard_normal((512, 256, 256)).astype(np.float32)).to(dev)
-    times["k1_batch512_m256_ms"] = cuda_ms(
+    times["k1_batch512_m256_ms"] = events_ms(
         lambda: fused.gj_kernel(xw, pivot=True), iters=5)
-    times["k1_twin_batch512_m256_ms"] = cuda_ms(
+    times["k1_twin_batch512_m256_ms"] = events_ms(
         lambda: fused.gj_twin(xw, pivot=True), iters=1)
     del xw
     strip = torch.from_numpy(
         rng.standard_normal((128, 4096)).astype(np.float32)).to(dev)
     used = torch.zeros(4096, dtype=torch.int32, device=dev)
-    times["k2_panel_4096_ms"] = cuda_ms(
+    times["k2_panel_4096_ms"] = events_ms(
         lambda: blocked.panel_factor(strip, 0, used, pivot=True), iters=10)
-    times["k2_twin_panel_4096_ms"] = cuda_ms(
+    times["k2_twin_panel_4096_ms"] = events_ms(
         lambda: blocked.panel_factor_twin(strip, 0, used, pivot=True),
         iters=3)
-    times["blocked_4096_raw_ms"] = cuda_ms(
+    times["blocked_4096_raw_ms"] = events_ms(
         lambda: blocked.blocked_inverse(x4k, refine=0), iters=3)
-    times["blocked_4096_refined_ms"] = cuda_ms(
+    times["blocked_4096_refined_ms"] = events_ms(
         lambda: blocked.blocked_inverse(x4k), iters=3)
     with matmul_precision("highest"):
         gemm = torch.randn(4096, 4096, device=dev)
-        times["fp32_gemm_4096_ms"] = cuda_ms(lambda: gemm @ gemm, iters=10)
+        times["fp32_gemm_4096_ms"] = events_ms(lambda: gemm @ gemm, iters=10)
     # K3 per panel at the LU route's (4096, 128) fp32 and the split path's
     # (20032, 64) bf16 shapes.
     s20 = torch.from_numpy(rng.standard_normal((64, 20032)).astype(
         np.float32)).to(dev).to(torch.bfloat16)
     u20 = torch.zeros(20032, dtype=torch.int32, device=dev)
-    times["k3_panel_4096_fp32_ms"] = cuda_ms(
+    times["k3_panel_4096_fp32_ms"] = events_ms(
         lambda: blocked.pivot_search(strip, used), iters=10)
-    times["k3_twin_panel_4096_fp32_ms"] = cuda_ms(
+    times["k3_twin_panel_4096_fp32_ms"] = events_ms(
         lambda: blocked.pivot_search_twin(strip, used), iters=3)
-    times["k3_panel_20032_bf16_ms"] = cuda_ms(
+    times["k3_panel_20032_bf16_ms"] = events_ms(
         lambda: blocked.pivot_search(s20, u20), iters=5)
-    times["k3_twin_panel_20032_bf16_ms"] = cuda_ms(
+    times["k3_twin_panel_20032_bf16_ms"] = events_ms(
         lambda: blocked.pivot_search_twin(s20, u20), iters=2)
     # K4 per launch at the split path's b = 64 (n = 20000) and b = 128
     # (the 4096^2 bf16-search call); K5 at getrf's b = 128. Yardsticks:
@@ -806,24 +851,31 @@ def main() -> None:
     blocks = {b: torch.from_numpy(rng.standard_normal((b, b)).astype(
         np.float32)).to(dev) for b in (64, 128)}
     for b, d in blocks.items():
-        times[f"k4_b{b}_ms"] = cuda_ms(
+        times[f"k4_b{b}_ms"] = events_ms(
             lambda: blocked.invert_small(d, pivot=True), iters=20)
-        times[f"k4_twin_b{b}_ms"] = cuda_ms(
+        times[f"k4_twin_b{b}_ms"] = events_ms(
             lambda: blocked.invert_small_twin(d[None], pivot=True), iters=3)
-        times[f"k4_library_inv_b{b}_ms"] = cuda_ms(
+        times[f"k4_library_inv_b{b}_ms"] = events_ms(
             lambda: torch.linalg.inv(d), iters=20)
+    # K5 and its yardstick also by torch.profiler: at ~20-100 us a call,
+    # CUDA events around the Python wrapper may time the host. K5's own
+    # kernel, and every kernel of the library call.
     dlu = blocks[128] + 128 * torch.eye(128, device=dev)
-    times["k5_b128_ms"] = cuda_ms(lambda: lu.small_lu(dlu), iters=20)
-    times["k5_twin_b128_ms"] = cuda_ms(lambda: lu.small_lu_twin(dlu[None]),
-                                       iters=3)
-    times["k5_library_lu_nopivot_b128_ms"] = cuda_ms(
-        lambda: torch.linalg.lu_factor(dlu, pivot=False), iters=20)
+    times["k5_b128_ms"] = events_ms(lambda: lu.small_lu(dlu), iters=200)
+    times["k5_b128_device_ms"] = device_ms(
+        lambda: lu.small_lu(dlu), 50, "small_lu")
+    times["k5_twin_b128_ms"] = events_ms(
+        lambda: lu.small_lu_twin(dlu[None]), iters=3)
+    times["k5_library_lu_nopivot_b128_ms"] = events_ms(
+        lambda: torch.linalg.lu_factor(dlu, pivot=False), iters=200)
+    times["k5_library_lu_nopivot_b128_device_ms"] = device_ms(
+        lambda: torch.linalg.lu_factor(dlu, pivot=False), 50)
     x4k64 = torch.from_numpy(a4k64).to(dev)
-    times["fp64_4096_ms"] = cuda_ms(lambda: inverse(x4k64), iters=1)
-    times["split_20000_ms"] = cuda_ms(lambda: inverse(x20), iters=1)
-    times["lu_inverse_4096_ms"] = cuda_ms(
+    times["fp64_4096_ms"] = events_ms(lambda: inverse(x4k64), iters=1)
+    times["split_20000_ms"] = events_ms(lambda: inverse(x20), iters=1)
+    times["lu_inverse_4096_ms"] = events_ms(
         lambda: inverse(x4k, method="lu"), iters=2)
-    times["lu_solve_4096x16_ms"] = cuda_ms(lambda: solve(x4k, rhs), iters=2)
+    times["lu_solve_4096x16_ms"] = events_ms(lambda: solve(x4k, rhs), iters=2)
     # K6 per launch at the lockstep shapes beside K2 on one of its strips
     # (k x K2 is the per-matrix route's factor time for the same panels),
     # and K6 on that strip alone (k = 1: K2's step chain in K6's build);
@@ -833,43 +885,49 @@ def main() -> None:
         s6 = torch.from_numpy(rng.standard_normal((k, 128, m)).astype(
             np.float32)).to(dev)
         u6 = torch.zeros((k, m), dtype=torch.int32, device=dev)
-        times[f"k2_m{m}_ms"] = cuda_ms(
+        times[f"k2_m{m}_ms"] = events_ms(
             lambda: blocked.panel_factor(s6[0], 0, u6[0], pivot=True),
             iters=10)
-        times[f"k6_k1_m{m}_ms"] = cuda_ms(
+        times[f"k6_k1_m{m}_ms"] = events_ms(
             lambda: lockstep.lockstep_factor(s6[:1], 0, u6[:1], pivot=True),
             iters=10)
         if k == 1:
             continue
-        times[f"k6_k{k}_m{m}_ms"] = cuda_ms(
+        times[f"k6_k{k}_m{m}_ms"] = events_ms(
             lambda: lockstep.lockstep_factor(s6, 0, u6, pivot=True), iters=10)
-        times[f"k6_twin_k{k}_m{m}_ms"] = cuda_ms(
+        times[f"k6_twin_k{k}_m{m}_ms"] = events_ms(
             lambda: lockstep.lockstep_factor_twin(s6, 0, u6, pivot=True),
             iters=1)
         times[f"k2_times_k{k}_m{m}_ms"] = k * times[f"k2_m{m}_ms"]
     for (bsz, n), xs in lockstep_in.items():
         key = f"batch{bsz}_n{n}"
-        times[f"{key}_per_matrix_ms"] = cuda_ms(lambda: inverse(xs), iters=2)
+        times[f"{key}_per_matrix_ms"] = events_ms(lambda: inverse(xs), iters=2)
         times[f"{key}_per_matrix_device_ms"] = device_ms(lambda: inverse(xs))
         with lockstep_on():
-            times[f"{key}_lockstep_ms"] = cuda_ms(lambda: inverse(xs),
-                                                  iters=2)
+            times[f"{key}_lockstep_ms"] = events_ms(lambda: inverse(xs),
+                                                    iters=2)
             times[f"{key}_lockstep_device_ms"] = device_ms(
                 lambda: inverse(xs))
     # K7 at 4096^3 beside its twin and the library GEMM: fp32 with TF32 off
-    # (the twin is that same call), bf16 against bf16 torch.matmul.
+    # (the twin is that same call), bf16 against bf16 torch.matmul; by
+    # events and by the profiler's device time (K7's kernel alone, every
+    # kernel of the library call).
     for dtype in (torch.float32, torch.bfloat16):
         xa, xb = (g.to(dtype) for g in big)
         tag = str(dtype)[6:]
-        times[f"k7_4096_{tag}_ms"] = cuda_ms(
-            lambda: matmul.tiled_matmul(xa, xb), iters=5)
-        times[f"k7_twin_4096_{tag}_ms"] = cuda_ms(
+        times[f"k7_4096_{tag}_ms"] = events_ms(
+            lambda: matmul.tiled_matmul(xa, xb), iters=20)
+        times[f"k7_4096_{tag}_device_ms"] = device_ms(
+            lambda: matmul.tiled_matmul(xa, xb), 10, "matmul_")
+        times[f"k7_twin_4096_{tag}_ms"] = events_ms(
             lambda: matmul.tiled_matmul_twin(xa, xb), iters=5)
         with matmul_precision("highest"):
-            times[f"k7_library_matmul_4096_{tag}_ms"] = cuda_ms(
-                lambda: xa @ xb, iters=5)
+            times[f"k7_library_matmul_4096_{tag}_ms"] = events_ms(
+                lambda: xa @ xb, iters=20)
+            times[f"k7_library_matmul_4096_{tag}_device_ms"] = (
+                device_ms(lambda: xa @ xb, 10))
     del big, xa, xb
-    times["ns_4096_ms"] = cuda_ms(lambda: inverse(xwc, method="ns"), iters=1)
+    times["ns_4096_ms"] = events_ms(lambda: inverse(xwc, method="ns"), iters=1)
     rates = {
         "k1_batch4096_inv_per_s": 4096 / (times["k1_batch4096_ms"] / 1e3),
         "k1_twin_batch4096_inv_per_s":
@@ -881,7 +939,8 @@ def main() -> None:
             times["k3_panel_20032_bf16_ms"] * 1e3 / 64,
     }
     for key, val in {**times, **rates}.items():
-        log(f"  {key}: {val:.4f}   [{card}]")
+        shown = "not measured" if val is None else f"{val:.4f}"
+        log(f"  {key}: {shown}   [{card}]")
 
     # Bounds from this run's shapes, at the operations each function needs
     # (not those of the algorithm that computes it): an n x n inverse
@@ -946,18 +1005,28 @@ def main() -> None:
         record("K4 small_inv", "small_inv.cu", "blocked.py:642",
                counts_split["K4"], k4_abs, times["k4_b64_ms"],
                times["k4_twin_b64_ms"], times["k4_library_inv_b64_ms"]),
-        record("K5 small_lu", "small_lu.cu", "lu.py:173", counts_lu["K5"],
-               k5_abs, times["k5_b128_ms"], times["k5_twin_b128_ms"],
-               times["k5_library_lu_nopivot_b128_ms"]),
+        {**record("K5 small_lu", "small_lu.cu", "lu.py:173",
+                  counts_lu["K5"], k5_abs, times["k5_b128_ms"],
+                  times["k5_twin_b128_ms"],
+                  times["k5_library_lu_nopivot_b128_ms"]),
+         "kernel_device_ms": times["k5_b128_device_ms"],
+         "library_device_ms": times["k5_library_lu_nopivot_b128_device_ms"]},
         # No PyTorch call factors panels of k matrices into pivot rows and
         # C^T (K6).
         record("K6 lockstep_factor", "panel_factor.cu", "lockstep.py:84",
                counts_ls[1024]["K6"], k6_abs, times["k6_k8_m1024_ms"],
                times["k6_twin_k8_m1024_ms"], None),
-        record("K7 tiled_matmul", "tiled_matmul.cu", "matmul.py:30",
-               counts_k7["K7"], k7_abs, times["k7_4096_float32_ms"],
-               times["k7_twin_4096_float32_ms"],
-               times["k7_library_matmul_4096_float32_ms"]),
+        # K7's record is its fp32 branch (the verification GEMM's dtype);
+        # its bf16 branch, on the tensor cores, in the *_bf16 keys.
+        {**record("K7 tiled_matmul", "tiled_matmul.cu", "matmul.py:30",
+                  counts_k7["K7"], k7_abs, times["k7_4096_float32_ms"],
+                  times["k7_twin_4096_float32_ms"],
+                  times["k7_library_matmul_4096_float32_ms"]),
+         "max_abs_err_bf16": k7_abs_bf16,
+         "ms_bf16": times["k7_4096_bfloat16_ms"],
+         "plain_ms_bf16": times["k7_twin_4096_bfloat16_ms"],
+         "bound_ms_bf16": k7_bf16[0], "bound_by_bf16": k7_bf16[1],
+         "library_ms_bf16": times["k7_library_matmul_4096_bfloat16_ms"]},
     ]
     phase("done")
     print(smi)

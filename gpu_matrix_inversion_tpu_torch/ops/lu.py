@@ -191,12 +191,27 @@ def small_lu_twin(d: torch.Tensor):
     return lu, ok
 
 
+# K5 holds a block in registers: 16 warps of 8 rows, 32 lanes of 4 columns.
+K5_MAX_B = 128
+
+
+def check_small_lu_block(b: int) -> None:
+    """Raise unless K5 serves (b, b) blocks: 1 <= b <= 128, the registers
+    of its 16 warps x 32 lanes holding 8 x 4 values each. 128 is the
+    largest block the getrf geometry (``_select_block_params``) hands it."""
+    if not 1 <= b <= K5_MAX_B:
+        raise ValueError(f"K5 small_lu serves blocks of 1 to {K5_MAX_B} "
+                         f"rows (its registers hold at most "
+                         f"{K5_MAX_B} x {K5_MAX_B}), got b = {b}")
+
+
 def small_lu(d: torch.Tensor):
     """K5 (``csrc/small_lu.cu``): no-pivot packed LU of (b, b) fp32 blocks,
     batched over a leading axis; returns ``(packed, ok)`` in the input's
     batch shape, ok = every pivot nonzero and every value finite. A CUDA
-    tensor launches the kernel (the block in shared memory, b <= 128 on
-    the path); a CPU tensor takes :func:`small_lu_twin`."""
+    tensor launches the kernel (the block in registers, b <= 128, see
+    :func:`check_small_lu_block`); a CPU tensor takes
+    :func:`small_lu_twin`."""
     if d.ndim not in (2, 3) or d.shape[-1] != d.shape[-2]:
         raise ValueError(f"K5 takes (b, b) or (B, b, b), got "
                          f"{tuple(d.shape)}")
@@ -207,6 +222,7 @@ def small_lu(d: torch.Tensor):
     if d.device.type == "cpu":
         packed, ok = small_lu_twin(d3)
     elif d.device.type == "cuda":
+        check_small_lu_block(b)
         lib = cuda_build.load()
         packed = torch.empty_like(d3)
         ok = torch.empty(bsz, dtype=torch.int32, device=d.device)

@@ -8,9 +8,16 @@ tests. Here it is kernel K7 (``csrc/tiled_matmul.cu``). As in the
 reference, no inversion path calls it: the production GEMMs are library
 calls.
 
-The TPU kernel's tile argument (``block``) does not carry over: K7's tiles
-are fixed for the GPU, and it masks the ragged edges itself, so no operand
-is padded.
+K7 has two branches: bf16 operands go to the tensor cores (``wgmma`` fed
+by TMA), fp32 ones through a pipelined FMA tile loop (true FP32). The TPU
+kernel's tile argument (``block``) does not carry over: K7's tiles are
+fixed for the GPU, and it masks the ragged edges itself. It does read each
+operand row in 16-byte units, so an operand whose row stride or base
+address is not a multiple of 16 bytes, or whose rows another tensor's
+elements follow inside their last unit, is first copied into a zero-tailed
+buffer with a padded row stride (:func:`stride_padded`, counted in
+``tiled_matmul.padded``), the counterpart of ``pallas_matmul``'s own
+padding to its tile.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from gpu_matrix_inversion_tpu_torch.utils import cuda_build
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_ROW_BYTES = 16  # K7 reads rows in 16-byte units (TMA; float4, cp.async)
 
 
 def error_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,11 +77,43 @@ def tiled_matmul_twin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return (a.float() @ b.float()).to(a.dtype)
 
 
+def needs_stride_pad(x: torch.Tensor) -> bool:
+    """Whether K7 cannot read the caller's row-major 2-D operand ``x`` in
+    place. K7 reads each row in whole 16-byte units from an aligned start
+    (TMA's rule, and the float4 and ``cp.async`` loads'), so the row stride
+    and the base address must be multiples of 16 bytes; and the fp32
+    branch takes a row's last unit as it finds it, so what follows a row
+    inside that unit must be zeros. Only a copy makes sure of that when the
+    row stride exceeds a row length that is not a multiple of 16 bytes (a
+    one-row view of a wider tensor counts as contiguous whatever its row
+    stride). The wrapper asks this of the caller's operands only:
+    :func:`stride_padded`'s copy, zero-tailed, is read in place. An operand
+    with no elements is never read."""
+    if x.numel() == 0:
+        return False
+    per = _ROW_BYTES // x.element_size()
+    return bool(x.stride(0) % per or x.data_ptr() % _ROW_BYTES
+                or (x.stride(0) != x.shape[1] and x.shape[1] % per))
+
+
+def stride_padded(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (rows, cols) copied into a zeroed buffer whose row stride is
+    cols rounded up to 16 bytes; returns the (rows, cols) view of that
+    buffer: the same shape and values, each row followed by a zero tail."""
+    rows, cols = x.shape
+    per = _ROW_BYTES // x.element_size()
+    buf = torch.zeros((rows, -(-cols // per) * per), dtype=x.dtype,
+                      device=x.device)
+    buf[:, :cols] = x
+    return buf[:, :cols]
+
+
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for 2-D fp32 or bf16 operands of one dtype (the
     counterpart of ``pallas_matmul``), with an fp32 accumulator and the
-    output in ``a``'s dtype. A CUDA tensor launches K7; a CPU tensor takes
-    :func:`tiled_matmul_twin`."""
+    output in ``a``'s dtype. A CUDA tensor launches K7 (an operand that
+    :func:`needs_stride_pad` is copied by :func:`stride_padded` first); a
+    CPU tensor takes :func:`tiled_matmul_twin`."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad matmul shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
@@ -90,12 +130,18 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"K7 runs on cuda (or its twin on cpu), not "
                          f"{a.device}")
     a, b = a.contiguous(), b.contiguous()
+    if needs_stride_pad(a):
+        a = stride_padded(a)
+        tiled_matmul.padded += 1
+    if needs_stride_pad(b):
+        b = stride_padded(b)
+        tiled_matmul.padded += 1
     (m, k), n = a.shape, b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     lib = cuda_build.load()
     err = lib.matinv_tiled_matmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-        int(a.dtype == torch.bfloat16),
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.stride(0),
+        b.stride(0), int(a.dtype == torch.bfloat16),
         torch.cuda.current_stream(a.device).cuda_stream)
     cuda_build.check(err, "K7 tiled_matmul")
     tiled_matmul.launches += 1
@@ -103,3 +149,4 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 tiled_matmul.launches = 0
+tiled_matmul.padded = 0

@@ -44,8 +44,8 @@ SIGNATURES = {
     # stream
     "matinv_lockstep_factor": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P),
-    # a, b, c, m, n, k, bf16, stream
-    "matinv_tiled_matmul": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # a, b, c, m, n, k, lda, ldb, bf16, stream
+    "matinv_tiled_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -111,16 +111,37 @@ def test_k4_matches_twin(cuda, b, pivot):
     assert _rel(inv_k[:-1], inv_t[:-1]) <= 1e-4
 
 
-def test_k5_matches_twin(cuda):
-    rng = np.random.default_rng(5)
-    d = rng.standard_normal((3, 128, 128)).astype(np.float32)
-    d += 128 * np.eye(128, dtype=np.float32)
+@pytest.mark.parametrize("b", [128, 64, 40, 8])
+def test_k5_matches_twin(cuda, b):
+    """K5 at getrf's b = 128 and at smaller blocks that leave warps, rows
+    and columns of its register layout empty."""
+    rng = np.random.default_rng(5 + b)
+    d = rng.standard_normal((3, b, b)).astype(np.float32)
+    d += b * np.eye(b, dtype=np.float32)
     d[2, 7, :8] = 0.0                      # a zero pivot
     x = torch.from_numpy(d).to(cuda)
     lu_k, ok_k = lu.small_lu(x)
     lu_t, ok_t = lu.small_lu_twin(x)
     assert ok_k.tolist() == ok_t.tolist() == [True, True, False]
     assert _rel(lu_k[:2], lu_t[:2]) <= 1e-4
+    # Elementwise, as chip_smoke.py phase 4c: the twin on the CPU takes the
+    # same operations in the same order, and parts from K5 only where its
+    # float64 emulation of fmaf rounds twice; one skipped update or a
+    # multiplier off by a percent breaks this bound, and a division or an
+    # update that rounds otherwise parts in the bits of far more than one
+    # element in a thousand.
+    got, want = lu_k[:2].cpu(), lu.small_lu_twin(x[:2].cpu())[0]
+    assert bool(((got.double() - want.double()).abs()
+                 <= 1e-6 * (want.double().abs() + 1)).all())
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    assert differ * 1000 <= got.numel()
+
+
+def test_k5_rejects_blocks_past_128(cuda):
+    before = lu.small_lu.launches
+    with pytest.raises(ValueError, match="1 to 128"):
+        lu.small_lu(torch.eye(129, device=cuda))
+    assert lu.small_lu.launches == before
 
 
 def test_new_paths_launch_their_kernels(cuda):
@@ -190,30 +211,49 @@ def test_k6_equals_k2_per_matrix(cuda, k, m, case):
     assert ok6.tolist() == ok_t.tolist() == [True] * k
 
 
-@pytest.mark.parametrize("shape", [(300, 200, 150), (1024, 512, 768)])
+# (m, k, n, base offset of A in elements, stride-pad copies K7 makes in
+# fp32 and in bf16).
+K7_CASES = {
+    "300x200x150": (300, 200, 150, 0, (1, 1)),       # edge tiles
+    "1024x512x768": (1024, 512, 768, 0, (0, 0)),
+    "ragged 1000x1001x999": (1000, 1001, 999, 0, (2, 2)),
+    "misaligned 256x136x200": (256, 136, 200, 1, (1, 1)),
+    "k=0 64x0x48": (64, 0, 48, 0, (0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(K7_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k7_matches_twin(cuda, shape, dtype):
-    """K7's output in the operands' dtype (edge tiles at 300 x 200 x 150).
-    fp32: within matmul.fp32_error_bound of the float64 product, which a
-    TF32 product and one of bf16-rounded operands both exceed on most
-    elements. bf16: within matmul.error_bound of its twin."""
+def test_k7_matches_twin(cuda, case, dtype):
+    """K7's output in the operands' dtype at edge tiles, at k and n that
+    are not multiples of 8 (both operands take the stride-pad copy), on an
+    A whose base is off 16 bytes, and at k = 0 (zeros). fp32: within
+    matmul.fp32_error_bound of the float64 product, which a TF32 product
+    and one of bf16-rounded operands both exceed on most elements. bf16:
+    within matmul.error_bound of its twin."""
     from gpu_matrix_inversion_tpu_torch.ops import matmul
     from gpu_matrix_inversion_tpu_torch.utils.precision import (
         matmul_precision)
-    m, k, n = shape
-    rng = np.random.default_rng(m)
-    a = torch.from_numpy(rng.standard_normal((m, k)).astype(
+    m, k, n, offset, pads = K7_CASES[case]
+    rng = np.random.default_rng(m + k)
+    flat = torch.from_numpy(rng.standard_normal(offset + m * k).astype(
         np.float32)).to(cuda).to(dtype)
+    a = flat[offset:].view(m, k)
     b = torch.from_numpy(rng.standard_normal((k, n)).astype(
         np.float32)).to(cuda).to(dtype)
     before = matmul.tiled_matmul.launches
+    padded = matmul.tiled_matmul.padded
     out = matmul.tiled_matmul(a, b)
     assert matmul.tiled_matmul.launches == before + 1
+    assert matmul.tiled_matmul.padded == padded + pads[dtype != torch.float32]
     assert out.dtype == dtype and out.shape == (m, n)
     if dtype == torch.bfloat16:
         twin = matmul.tiled_matmul_twin(a, b)
         diff = (out.float() - twin.float()).abs()
         assert bool((diff <= matmul.error_bound(a, b)).all())
+        return
+    if k == 0:
+        assert not bool(out.any())
         return
     exact = a.double() @ b.double()
     tol = matmul.fp32_error_bound(a, b)
@@ -224,6 +264,30 @@ def test_k7_matches_twin(cuda, shape, dtype):
     for control in (tf32, rounded):
         over = (control.double() - exact).abs() > tol
         assert float(over.double().mean()) > 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_reads_nothing_past_k(cuda, dtype):
+    """A one-row A that views the first 1001 columns of a (1, 1008) row
+    whose last seven hold inf: it counts as contiguous and its stride and
+    base are aligned, but read in place, the last 16-byte unit of its row
+    would bring inf into the fp32 product (0 * inf = NaN). It takes the
+    stride-pad copy; B (1001 x 72, aligned) takes none."""
+    from gpu_matrix_inversion_tpu_torch.ops import matmul
+    rng = np.random.default_rng(1001)
+    wide = torch.full((1, 1008), float("inf"), dtype=dtype, device=cuda)
+    wide[:, :1001] = torch.from_numpy(
+        rng.standard_normal((1, 1001)).astype(np.float32)).to(cuda)
+    a = wide[:, :1001]
+    b = torch.from_numpy(rng.standard_normal((1001, 72)).astype(
+        np.float32)).to(cuda).to(dtype)
+    padded = matmul.tiled_matmul.padded
+    out = matmul.tiled_matmul(a, b)
+    assert matmul.tiled_matmul.padded == padded + 1
+    twin = matmul.tiled_matmul_twin(a, b)
+    assert bool(torch.isfinite(out).all())
+    diff = (out.float() - twin.float()).abs()
+    assert bool((diff <= matmul.error_bound(a, b)).all())
 
 
 def test_lockstep_route_launches_k6(cuda, monkeypatch):

@@ -66,6 +66,30 @@ def test_small_lu_twin_matches_jax(b, case):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("b,serves", [(1, True), (8, True), (40, True),
+                                      (128, True), (0, False), (129, False),
+                                      (256, False)])
+def test_small_lu_block_limit(b, serves):
+    """K5 keeps a block in registers, at most 128 x 128: the largest block
+    getrf hands it at every size and dtype it serves."""
+    if serves:
+        tlu.check_small_lu_block(b)
+    else:
+        with pytest.raises(ValueError, match="1 to 128"):
+            tlu.check_small_lu_block(b)
+
+
+@pytest.mark.parametrize("n", [100, 4096, 8192, 16384, 20000, 40000])
+def test_getrf_blocks_fit_k5(n):
+    """getrf's block, as lu_factor_blocked derives it, even for a block
+    size of 256 asked for, fits K5 wherever the kernels run."""
+    from gpu_matrix_inversion_tpu_torch.ops.blocked import (
+        _select_block_params)
+    b, use_kernels, _ = _select_block_params(n, min(256, max(n, 8)),
+                                             torch.float32, False)
+    assert use_kernels and b <= tlu.K5_MAX_B
+
+
 @pytest.mark.parametrize("group", ["2", "1", "default"])
 def test_lu_factor_blocked_matches_jax(group, monkeypatch):
     """fp32 getrf through K3 and K5 at n = 200, b = 64 (m = 256, four

@@ -129,6 +129,78 @@ def test_tiled_matmul_rejects_other_dtypes():
                              torch.ones(4, 4, dtype=torch.bfloat16))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stride_pad_rule(dtype):
+    """K7 reads rows in 16-byte units: an operand needs the stride-pad copy
+    when its row stride or its base address is off 16 bytes; one with no
+    elements never does. The shapes of the on-card checks."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+
+    def op(rows, cols, offset=0):
+        flat = torch.zeros(offset + rows * cols, dtype=dtype)
+        return flat[offset:].view(rows, cols)
+
+    assert not tmatmul.needs_stride_pad(op(3, 2 * per))
+    assert tmatmul.needs_stride_pad(op(3, 2 * per + 1))
+    assert tmatmul.needs_stride_pad(op(3, 2 * per, offset=1))
+    assert not tmatmul.needs_stride_pad(op(64, 0))
+    assert not tmatmul.needs_stride_pad(op(0, 48))
+    # 300 x 200 @ 200 x 150: B's rows are 600 (fp32) or 300 (bf16) bytes.
+    assert not tmatmul.needs_stride_pad(op(300, 200))
+    assert tmatmul.needs_stride_pad(op(200, 150))
+    # 1000 x 1001 @ 1001 x 999: both; 4096^2: neither.
+    assert tmatmul.needs_stride_pad(op(1000, 1001))
+    assert tmatmul.needs_stride_pad(op(1001, 999))
+    assert not tmatmul.needs_stride_pad(op(4096, 4096))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stride_pad_one_row_view(dtype):
+    """A one-row view of a wider row counts as contiguous whatever its row
+    stride, so the wrapper's ``contiguous()`` keeps it. With a stride and
+    base that are aligned but a length that is not, K7 would read the
+    wider row's next elements (inf here) in the row's last 16-byte unit:
+    it takes the copy, whose tail is zeros. With an aligned length it
+    needs none."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    wide = torch.full((1, 4 * per), float("inf"), dtype=dtype)
+    view = wide[:, :2 * per + 1]
+    assert view.is_contiguous() and view.contiguous() is view
+    assert view.stride(0) == 4 * per
+    assert tmatmul.needs_stride_pad(view)
+    assert not tmatmul.needs_stride_pad(wide[:, :2 * per])
+    padded = tmatmul.stride_padded(view)
+    row = padded.as_strided((1, padded.stride(0)), (padded.stride(0), 1))
+    assert torch.equal(padded, view) and not bool(row[:, 2 * per + 1:].any())
+
+
+@pytest.mark.parametrize("shape,offset", [((200, 150), 0), ((7, 1001), 0),
+                                          ((5, 16), 1), ((1, 3), 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stride_padded_copy(dtype, shape, offset):
+    """The stride-pad copy keeps the logical shape and every value, pads
+    each row with zeros to a 16-byte stride on an aligned base, and so
+    gives K7 what it reads in place: aligned rows whose last 16-byte unit
+    holds zeros past the row."""
+    rows, cols = shape
+    rng = np.random.default_rng(rows * cols)
+    flat = torch.from_numpy(rng.standard_normal(offset + rows * cols).astype(
+        np.float32)).to(dtype)
+    x = flat[offset:].view(rows, cols)
+    p = tmatmul.stride_padded(x)
+    ld = p.stride(0)
+    assert p.shape == x.shape and p.dtype == dtype and p.stride(1) == 1
+    assert (ld * p.element_size()) % 16 == 0 and cols <= ld < cols + 16
+    assert torch.equal(p, x)
+    full = p.as_strided((rows, ld), (ld, 1))
+    assert not bool(full[:, cols:].any())
+    assert p.data_ptr() % 16 == 0
+    # Its stride and base pass the rule; only a ragged row length, whose
+    # tail the rule cannot see is zeros, would ask for another copy.
+    per = 16 // p.element_size()
+    assert tmatmul.needs_stride_pad(p) == bool(cols % per)
+
+
 def _ill_conditioned(n=192, seed=93):
     rng = np.random.default_rng(seed)
     q, _ = np.linalg.qr(rng.standard_normal((n, n)))

@@ -143,3 +143,24 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build()
     assert not (tmp_path / "build").exists()
+
+
+def test_device_kernels_raises_when_no_device_time(monkeypatch):
+    """A profiled call that ran nothing on a device raises NoDeviceTime (a
+    RuntimeError), which measurement scripts may catch to profile again;
+    here the call runs on the CPU only (nothing to synchronize)."""
+    from gpu_matrix_inversion_tpu_torch.utils import profiling
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    with pytest.raises(profiling.NoDeviceTime):
+        profiling.device_kernels(lambda: torch.ones(3) + 1)
+    assert issubclass(profiling.NoDeviceTime, RuntimeError)
+
+
+def test_device_ms_profiles_again_then_reports_not_measured(monkeypatch):
+    """device_ms warms up once, then profiles ``iters`` calls in up to
+    three sessions; when none saw device time it returns None."""
+    from gpu_matrix_inversion_tpu_torch.utils import profiling
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    assert profiling.device_ms(lambda: calls.append(1), iters=2) is None
+    assert len(calls) == 1 + 3 * 2
