@@ -18,7 +18,12 @@ GEMM of the 4096^2 inverse, ``inverse(method="ns")`` and ``Inverter``.
 The fourth slice redesigned K7 (bf16 on the tensor cores, fp32 as a
 pipelined FMA loop; checked also at ragged, stride-padded and k = 0
 shapes) and K5 (the block in registers; checked at b = 128, 64, 40, 8),
-and times both by CUDA events and by the profiler's device time.
+and times both by CUDA events and by the profiler's device time. The
+fifth slice redesigned K1 (its m = 128 branch: the matrix in registers,
+two blocks an SM) and K4 (the block in registers, rows kept in place):
+both are held elementwise to their twins (bits equal up to the sign of a
+zero) and timed also by the profiler's device time, K1 beside its
+occupancy.
 Each path runs with the kernels' launch counts zeroed just before it and
 read just after, and must have launched its kernels. It checks residual
 gates, repeat-run determinism, and times the kernels beside their twins,
@@ -114,6 +119,33 @@ def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
     return torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+def hold_to_twin(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """K1 and K4 elementwise against their twins: the kernels take the
+    twin's operations in the twin's order, and part from it only where the
+    twin's float64 emulation of fmaf rounds twice (a halfway case, about
+    once in 2^28 updates) or where a zero carries the other sign (the
+    kernels skip the dead entries of [X | I], so such a zero starts from
+    +0 where the twin's may be -0). So every element within
+    1e-6 (|twin| + 1), and at most 1 in 1000 elements differing in their
+    bits other than by the sign of a zero; the signed zeros are counted.
+    One skipped update or a multiplier off by a percent breaks the first
+    bound, a division that rounds otherwise the second."""
+    g, w = got.double(), want.double()
+    scaled = float(((g - w).abs() / (w.abs() + 1)).max()) / 1e-6
+    del g, w
+    ints = torch.int32 if got.element_size() == 4 else torch.int16
+    differ = got.view(ints) != want.view(ints)
+    zeros = (got == 0) & (want == 0)
+    other = int((differ & ~zeros).sum())
+    signed = int((differ & zeros).sum())
+    log(f"  {name}: {other} of {got.numel()} elements differ in their bits "
+        f"(and {signed} zeros in their sign); at most {scaled:.4f} of "
+        f"1e-6 (|twin| + 1)")
+    check(scaled <= 1.0, f"{name}: every element within 1e-6 (|twin| + 1)")
+    check(other * 1000 <= got.numel(), f"{name}: at most 1 in 1000 elements "
+          f"differ in their bits, zeros aside")
+
+
 @contextlib.contextmanager
 def lockstep_on():
     """Opt in to the lockstep route (MATINV_LOCKSTEP=1) for the block."""
@@ -205,16 +237,22 @@ def main() -> None:
             log("  ptxas: " + line.strip())
 
     # ---- phase 3: K1 against its twin -----------------------------------
-    # Tolerance: pos identical, ok equal, values within 1e-4 of max|twin|.
-    # The twin rounds as the kernel does (one FMA per update, IEEE
-    # division); it emulates the FMA in float64, which rounds twice in
-    # rare halfway cases, so the two may differ by a few ulps.
+    # Tolerance: pos identical, ok equal, values within 1e-4 of max|twin|,
+    # and elementwise as hold_to_twin says. The twin rounds as the kernel
+    # does (one FMA per update, IEEE division); it emulates the FMA in
+    # float64, which rounds twice in rare halfway cases, so the two may
+    # differ by a few ulps.
     phase("phase 3: K1 fused_gj vs its twin")
+    k1_per_sm = fused.blocks_per_sm()
+    log(f"  K1 m = 128 branch: {k1_per_sm} blocks resident per SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    check(k1_per_sm >= 2, "K1 m = 128: at least two blocks resident per SM")
     rng = np.random.default_rng(0)
     k1_abs = 0.0
     # The main path's own shapes come first: the (4096, 128, 128) headline
     # batch and the single 256 x 256 matrix of phase 5's fused call.
-    cases = [("(4096,128,128) shared-memory branch", (4096, 128), True,
+    cases = [("(4096,128,128) register branch", (4096, 128), True,
               torch.float32),
              ("single 256x256 (m=256) global workspace", (1, 256), True,
               torch.float32),
@@ -241,6 +279,8 @@ def main() -> None:
         check(torch.equal(ok_k, ok_t) and bool(ok_k.all()),
               f"K1 {name}: ok equal (all true)")
         check(d_rel <= 1e-4, f"K1 {name}: values within 1e-4")
+        hold_to_twin(f"K1 {name}", inv_k, inv_t)
+        del inv_k, inv_t
 
     # ---- phase 4: K2 against its twin -----------------------------------
     # Tolerance: pivrows identical, ok equal, C^T within 1e-4 of max|twin|
@@ -308,7 +348,8 @@ def main() -> None:
                   f"K3 {name}: no used row chosen")
 
     # ---- phase 4c: K4 and K5 against their twins ------------------------
-    # Tolerance: ok equal; values within 1e-4 of max|twin| (the twins round
+    # Tolerance: ok equal; values within 1e-4 of max|twin|, and K4
+    # elementwise as hold_to_twin says (the twins round
     # as the kernels do -- one FMA per update, IEEE division -- but emulate
     # the FMA in float64, which rounds twice in rare halfway cases). Each
     # batch holds 256 random blocks (K5: made diagonally dominant, as K3's
@@ -359,6 +400,7 @@ def main() -> None:
               f"{name}: ok equal (256 true, the singular block false)")
         check(d_rel <= 1e-4, f"{name}: values within 1e-4")
         if name.startswith("K4"):
+            hold_to_twin(name, out_k[:-1], out_t[:-1])
             continue
         got, want = out_k[:-1].cpu(), lu.small_lu_twin(x[:-1].cpu())[0]
         scaled = float(((got.double() - want.double()).abs()
@@ -805,6 +847,12 @@ def main() -> None:
         lambda: fused.gj_twin(xb, pivot=True), iters=1)
     times["k1_library_inv_batch4096_ms"] = events_ms(
         lambda: torch.linalg.inv(xb), iters=5)
+    # By the profiler too: K1's own kernel, every kernel of the library
+    # call.
+    times["k1_batch4096_device_ms"] = device_ms(
+        lambda: fused.gj_kernel(xb, pivot=True), 3, "fused_gj")
+    times["k1_library_inv_batch4096_device_ms"] = device_ms(
+        lambda: torch.linalg.inv(xb), 3)
     times["fused_inverse_batch4096_ms"] = events_ms(lambda: inverse(xb),
                                                     iters=5)
     # K1's global-workspace branch on a batch that fills the card: 512
@@ -847,16 +895,22 @@ def main() -> None:
     # K4 per launch at the split path's b = 64 (n = 20000) and b = 128
     # (the 4096^2 bf16-search call); K5 at getrf's b = 128. Yardsticks:
     # torch.linalg.inv and torch.linalg.lu_factor(pivot=False) on the same
-    # block (timed here only; the port never calls them).
+    # block (timed here only; the port never calls them). At tens of us a
+    # call, CUDA events around the Python wrapper may time the host, so
+    # both also by the profiler's device time.
     blocks = {b: torch.from_numpy(rng.standard_normal((b, b)).astype(
         np.float32)).to(dev) for b in (64, 128)}
     for b, d in blocks.items():
         times[f"k4_b{b}_ms"] = events_ms(
-            lambda: blocked.invert_small(d, pivot=True), iters=20)
+            lambda: blocked.invert_small(d, pivot=True), iters=200)
+        times[f"k4_b{b}_device_ms"] = device_ms(
+            lambda: blocked.invert_small(d, pivot=True), 50, "small_inv")
         times[f"k4_twin_b{b}_ms"] = events_ms(
             lambda: blocked.invert_small_twin(d[None], pivot=True), iters=3)
         times[f"k4_library_inv_b{b}_ms"] = events_ms(
-            lambda: torch.linalg.inv(d), iters=20)
+            lambda: torch.linalg.inv(d), iters=200)
+        times[f"k4_library_inv_b{b}_device_ms"] = device_ms(
+            lambda: torch.linalg.inv(d), 50)
     # K5 and its yardstick also by torch.profiler: at ~20-100 us a call,
     # CUDA events around the Python wrapper may time the host. K5's own
     # kernel, and every kernel of the library call.
@@ -989,10 +1043,13 @@ def main() -> None:
                 "bound_by": bounds[name[:2]][1], "library_ms": library}
 
     kernels = [
-        record("K1 fused_gj", "fused_gj.cu", "fused.py:140", launches["K1"],
-               k1_abs, times["k1_batch4096_ms"],
-               times["k1_twin_batch4096_ms"],
-               times["k1_library_inv_batch4096_ms"]),
+        {**record("K1 fused_gj", "fused_gj.cu", "fused.py:140",
+                  launches["K1"], k1_abs, times["k1_batch4096_ms"],
+                  times["k1_twin_batch4096_ms"],
+                  times["k1_library_inv_batch4096_ms"]),
+         "kernel_device_ms": times["k1_batch4096_device_ms"],
+         "library_device_ms": times["k1_library_inv_batch4096_device_ms"],
+         "blocks_per_sm": k1_per_sm},
         # No PyTorch call computes a panel's pivot rows and C^T (K2) or a
         # packed-key pivot search (K3): library_ms is null for both.
         record("K2 panel_factor", "panel_factor.cu", "blocked.py:255",
@@ -1002,9 +1059,19 @@ def main() -> None:
                counts_split["K3"], k3_mismatch,
                times["k3_panel_20032_bf16_ms"],
                times["k3_twin_panel_20032_bf16_ms"], None),
-        record("K4 small_inv", "small_inv.cu", "blocked.py:642",
-               counts_split["K4"], k4_abs, times["k4_b64_ms"],
-               times["k4_twin_b64_ms"], times["k4_library_inv_b64_ms"]),
+        # K4's record is b = 64 (the split path's block); b = 128 (the
+        # bf16-search call's) in the *_b128 keys.
+        {**record("K4 small_inv", "small_inv.cu", "blocked.py:642",
+                  counts_split["K4"], k4_abs, times["k4_b64_ms"],
+                  times["k4_twin_b64_ms"], times["k4_library_inv_b64_ms"]),
+         "kernel_device_ms": times["k4_b64_device_ms"],
+         "library_device_ms": times["k4_library_inv_b64_device_ms"],
+         "ms_b128": times["k4_b128_ms"],
+         "plain_ms_b128": times["k4_twin_b128_ms"],
+         "bound_ms_b128": k4_128[0], "bound_by_b128": k4_128[1],
+         "library_ms_b128": times["k4_library_inv_b128_ms"],
+         "kernel_device_ms_b128": times["k4_b128_device_ms"],
+         "library_device_ms_b128": times["k4_library_inv_b128_device_ms"]},
         {**record("K5 small_lu", "small_lu.cu", "lu.py:173",
                   counts_lu["K5"], k5_abs, times["k5_b128_ms"],
                   times["k5_twin_b128_ms"],

@@ -393,8 +393,8 @@ def invert_small_twin(d: torch.Tensor, *, pivot: bool):
 def invert_small(d: torch.Tensor, *, pivot: bool):
     """K4 (``csrc/small_inv.cu``): invert (b, b) fp32 blocks, batched over
     a leading axis; returns ``(inv, ok)`` in the input's batch shape. A
-    CUDA tensor launches the kernel (b <= 128, [D | I] in shared memory);
-    a CPU tensor takes :func:`invert_small_twin`."""
+    CUDA tensor launches the kernel (b <= 128, the block in registers); a
+    CPU tensor takes :func:`invert_small_twin`."""
     if d.ndim not in (2, 3) or d.shape[-1] != d.shape[-2]:
         raise ValueError(f"K4 takes (b, b) or (B, b, b), got "
                          f"{tuple(d.shape)}")

@@ -5,8 +5,10 @@ host loop enqueues 5 kernels and pays 3 host syncs per iteration, N
 iterations per inversion (``FP32_bench.cpp:342-405``; SURVEY.md section 3.1
 names it as the reason it lost to LAPACK). Here the whole r-loop of each
 matrix runs inside ONE kernel launch: ``csrc/fused_gj.cu``, one thread block
-per matrix of the batch, the augmented ``[A | I]`` system in shared memory
-at m = 128 and in a global workspace for 256 <= m <= 640 (0.5 to 3.2 MB per
+per matrix of the batch. At m = 128 the block keeps the matrix in
+registers, in the in-place layout (m live columns of ``[A | I]``), with two
+block barriers a step and two blocks on each SM; for 256 <= m <= 640 the
+augmented ``[A | I]`` system lives in a global workspace (0.5 to 3.2 MB per
 matrix: L2 holds a few, but a batch that fills the card streams the
 workspace from HBM).
 
@@ -19,11 +21,14 @@ single gather by the emitted position vector.
 :func:`gj_kernel` is the wrapper: a CUDA tensor launches the kernel (or the
 call raises), a CPU tensor runs :func:`gj_twin`, the plain PyTorch version
 of the same math that the CPU tests hold against the JAX package. The TPU
-kernel's ``pack`` (several systems per program to hide TPU latency) is not
-carried over: on the GPU, resident blocks on other SMs do that job.
+kernel's ``pack`` (several systems per program, so that their step chains
+hide each other's latency) becomes two blocks resident on each SM at
+m = 128: only blocks on the same SM hide that SM's chain.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -32,9 +37,11 @@ from gpu_matrix_inversion_tpu_torch.utils import cuda_build
 # Largest n the fused route takes. Kept equal to the JAX package's
 # FUSED_MAX_N (a TPU VMEM bound) so both packages route every input alike.
 FUSED_MAX_N = 640
-# A block's shared memory on an H100 (227 KB): the (m, 2m) fp32 working set
-# stays in shared memory when 8*m^2 bytes fit, else in a global workspace.
+# A block's shared memory on an H100 (227 KB), the limit the panel kernels'
+# strips are sized against (ops/blocked.py, ops/lockstep.py).
 SHARED_BYTES = 227 * 1024
+# K1 keeps the matrix in registers at this m; larger m take a workspace.
+REGISTER_M = 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -131,7 +138,7 @@ def gj_kernel(a: torch.Tensor, *, pivot: bool):
     inv = torch.empty_like(a)
     pos = torch.empty((bsz, m), dtype=torch.int32, device=a.device)
     ok = torch.empty(bsz, dtype=torch.int32, device=a.device)
-    work = (None if 8 * m * m <= SHARED_BYTES else
+    work = (None if m == REGISTER_M else
             torch.empty((bsz, m, 2 * m), dtype=torch.float32,
                         device=a.device))
     err = lib.matinv_fused_gj(
@@ -145,6 +152,16 @@ def gj_kernel(a: torch.Tensor, *, pivot: bool):
 
 
 gj_kernel.launches = 0
+
+
+def blocks_per_sm() -> int:
+    """K1 blocks at m = 128 that one SM holds at once, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports it (needs the
+    card)."""
+    blocks = ctypes.c_int(0)
+    cuda_build.check(cuda_build.load().matinv_fused_gj_occupancy(
+        ctypes.byref(blocks)), "K1 occupancy query")
+    return blocks.value
 
 
 def _fused_batched(a: torch.Tensor, *, pivot: bool):

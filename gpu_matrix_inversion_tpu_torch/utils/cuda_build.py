@@ -31,6 +31,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     # a, inv, pos, ok, work, batch, m, pivot, bf16, stream
     "matinv_fused_gj": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # blocks (int *)
+    "matinv_fused_gj_occupancy": (_P,),
     # stripT, used, pivrows, ct, ok, wp, m, b, sub, kmask, kb, pivot, stream
     "matinv_panel_factor": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P),

@@ -18,8 +18,8 @@ def device_info(device="cuda") -> dict:
     """Device-capability dump (reference FP32.cpp:304-333 prints max
     workgroup size, global/local memory and compute units). On a CUDA
     device the counterparts are the SM count, device memory and the
-    opt-in shared memory per block, which bounds the fused kernel's
-    shared-memory branch (ops/fused.py)."""
+    opt-in shared memory per block, which bounds the panel kernels'
+    strips (ops/blocked.py)."""
     device = torch.device(device)
     if device.type != "cuda":
         return {"backend": device.type, "device_count": 1}

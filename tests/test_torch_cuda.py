@@ -10,7 +10,8 @@ pytest worker collects the same tests). On a machine with the card:
 need not have.)
 
 Tolerances as in ``chip_smoke.py``: pivot sequences identical, ok equal,
-values within 1e-4 of max|twin|; K6 bit for bit against K2 and its twin on
+values within 1e-4 of max|twin|; K1, K4 and K5 also elementwise against
+the twin (``_hold_to_twin``); K6 bit for bit against K2 and its twin on
 the CPU; K7 as its test states.
 """
 
@@ -36,16 +37,56 @@ def _rel(x, ref) -> float:
                  / ref.double().abs().max())
 
 
-@pytest.mark.parametrize("bsz,m,pivot,dtype", [
-    (8, 128, True, torch.float32),     # shared-memory branch
-    (8, 128, False, torch.float32),
-    (8, 128, True, torch.bfloat16),
-    (2, 256, True, torch.float32),     # global-workspace branch
-    (1, 640, True, torch.float32),
+def _hold_to_twin(got, want) -> int:
+    """Elementwise, as test_k5_matches_twin: the kernels and the twins take
+    the same operations in the same order, and part only where the twin's
+    float64 emulation of fmaf rounds twice (a halfway case) or where a zero
+    carries the other sign (K1 and K4 skip the dead entries of [X | I], so
+    a zero there starts from +0, not from -0). So every element within
+    1e-6 (|twin| + 1), and at most 1 in 1000 elements differing in their
+    bits other than by the sign of a zero; one skipped update or a
+    multiplier off by a percent breaks the first, a division that rounds
+    otherwise the second. Returns the count of differing elements."""
+    got, want = got.cpu(), want.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(((got.double() - want.double()).abs()
+                 <= 1e-6 * (want.double().abs() + 1)).all())
+    ints = torch.int32 if got.element_size() == 4 else torch.int16
+    differ = int(((got.view(ints) != want.view(ints))
+                  & ~((got == 0) & (want == 0))).sum())
+    assert differ * 1000 <= got.numel()
+    return differ
+
+
+def _block_values(rng, shape, kind: str) -> np.ndarray:
+    """Inputs for the pivot rules: standard normal, integers in [-3, 3]
+    (exact ties in |column|), or quarter steps plus 1e-3 noise (near
+    ties)."""
+    if kind == "integers":
+        return rng.integers(-3, 4, shape).astype(np.float32)
+    if kind == "quarters":
+        return (rng.integers(-8, 9, shape) / 4
+                + 1e-3 * rng.standard_normal(shape)).astype(np.float32)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("bsz,m,pivot,dtype,kind", [
+    (8, 128, True, torch.float32, "normal"),     # register branch
+    (8, 128, False, torch.float32, "normal"),
+    (8, 128, True, torch.bfloat16, "normal"),
+    (8, 128, True, torch.float32, "integers"),
+    (8, 128, True, torch.float32, "quarters"),
+    (8, 128, False, torch.float32, "quarters"),
+    (8, 128, True, torch.bfloat16, "quarters"),
+    (2, 256, True, torch.float32, "normal"),     # global-workspace branch
+    (1, 640, True, torch.float32, "normal"),
 ])
-def test_k1_matches_twin(cuda, bsz, m, pivot, dtype):
+def test_k1_matches_twin(cuda, bsz, m, pivot, dtype, kind):
+    """K1 against its twin on the card (pos identical, ok equal, 1e-4) and
+    elementwise against the twin on the CPU, on random and tie-heavy
+    inputs (the packed key's tie-break by row)."""
     rng = np.random.default_rng(m + bsz)
-    a = rng.standard_normal((bsz, m, m)).astype(np.float32)
+    a = _block_values(rng, (bsz, m, m), kind)
     if not pivot:
         a += m * np.eye(m, dtype=np.float32)
     x = torch.from_numpy(a).to(cuda).to(dtype)
@@ -56,6 +97,27 @@ def test_k1_matches_twin(cuda, bsz, m, pivot, dtype):
     assert torch.equal(pos_k, pos_t)
     assert torch.equal(ok_k, ok_t) and bool(ok_k.all())
     assert _rel(inv_k, inv_t) <= 1e-4
+    inv_c, pos_c, ok_c = fused.gj_twin(x.cpu(), pivot=pivot)
+    assert torch.equal(pos_k.cpu(), pos_c) and torch.equal(ok_k.cpu(), ok_c)
+    _hold_to_twin(inv_k, inv_c)
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3])
+def test_k1_ragged_waves(cuda, per_sm):
+    """Batches of 1, 2 and 3 matrices per SM plus seven (a ragged last
+    wave: two blocks share an SM), against the twin on the card
+    elementwise; and the occupancy the register branch was built for."""
+    assert fused.blocks_per_sm() >= 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    bsz = per_sm * sms + 7
+    rng = np.random.default_rng(per_sm)
+    x = torch.from_numpy(_block_values(rng, (bsz, 128, 128),
+                                       "quarters")).to(cuda)
+    inv_k, pos_k, ok_k = fused.gj_kernel(x, pivot=True)
+    inv_t, pos_t, ok_t = fused.gj_twin(x, pivot=True)
+    assert torch.equal(pos_k, pos_t)
+    assert torch.equal(ok_k, ok_t) and bool(ok_k.all())
+    _hold_to_twin(inv_k, inv_t)
 
 
 @pytest.mark.parametrize("m,b,kb", [(256, 64, 0), (1024, 128, 128),
@@ -109,6 +171,27 @@ def test_k4_matches_twin(cuda, b, pivot):
     inv_t, ok_t = blocked.invert_small_twin(x, pivot=pivot)
     assert ok_k.tolist() == ok_t.tolist() == [True] * 256 + [False]
     assert _rel(inv_k[:-1], inv_t[:-1]) <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["integers", "quarters"])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("b", [128, 64, 40])
+def test_k4_ties_match_twin_on_cpu(cuda, b, pivot, kind):
+    """K4 on tie-heavy blocks (exact and near ties in |column|: the swap
+    order decides them), a singular block and a NaN block, elementwise
+    against the twin on the CPU; ok equal. b = 40 leaves rows and column
+    slots of the register layout empty."""
+    rng = np.random.default_rng(b + 2 * pivot)
+    d = _block_values(rng, (4, b, b), kind)
+    if not pivot:
+        d += b * np.eye(b, dtype=np.float32)
+    d[2, :, 7] = 0.0
+    d[3, 5, 9] = np.nan
+    x = torch.from_numpy(d).to(cuda)
+    inv_k, ok_k = blocked.invert_small(x, pivot=pivot)
+    inv_c, ok_c = blocked.invert_small_twin(x.cpu(), pivot=pivot)
+    assert ok_k.tolist() == ok_c.tolist() == [True, True, False, False]
+    _hold_to_twin(inv_k[:2], inv_c[:2])
 
 
 @pytest.mark.parametrize("b", [128, 64, 40, 8])

@@ -82,11 +82,28 @@ def _jax_gj_kernel(a: np.ndarray, *, pivot: bool):
 
 
 @pytest.mark.parametrize("pivot", [True, False])
-@pytest.mark.parametrize("n", [5, 128, 200])
-def test_gj_twin_matches_jax_kernel(n, pivot):
+@pytest.mark.parametrize("n,kind", [
+    pytest.param(5, "normal", id="5"), pytest.param(128, "normal", id="128"),
+    pytest.param(200, "normal", id="200"), (32, "integers"),
+    (128, "integers"), (128, "quarters"), (100, "quarters")])
+def test_gj_twin_matches_jax_kernel(n, kind, pivot):
     """Raw kernel outputs: pos identical, ok equal, pivot-order inverse
-    within tolerance."""
-    a = _pad(_inputs(n, pivot))
+    within tolerance; also on tie-heavy inputs, where the packed key's
+    tie-break by row decides the pivots: integers in [-3, 3] (exact ties
+    in |column|) and quarter steps plus 1e-3 noise (values equal in the
+    key's kept bits)."""
+    if kind == "normal":
+        a = _inputs(n, pivot)
+    else:
+        rng = np.random.default_rng(n)
+        if kind == "integers":
+            a = rng.integers(-3, 4, (3, n, n)).astype(np.float32)
+        else:
+            a = (rng.integers(-8, 9, (3, n, n)) / 4
+                 + 1e-3 * rng.standard_normal((3, n, n))).astype(np.float32)
+        if not pivot:
+            a += n * np.eye(n, dtype=np.float32)
+    a = _pad(a)
     j_inv, j_pos, j_ok = _jax_gj_kernel(a, pivot=pivot)
     t_inv, t_pos, t_ok = tfused.gj_kernel(torch.from_numpy(a), pivot=pivot)
     np.testing.assert_array_equal(t_pos.numpy(), j_pos)

@@ -143,14 +143,22 @@ def _jax_invert_small(d, pivot):
 
 @pytest.mark.parametrize("b,pivot,case", [
     (32, True, "random"), (64, True, "random"), (32, False, "dominant"),
-    (32, True, "singular")])
+    (32, True, "singular"), (32, True, "integers"), (64, True, "integers"),
+    (32, True, "quarters"), (32, False, "integers")])
 def test_invert_small_twin_matches_jax(b, pivot, case):
     """K4's twin against ``_invert_small``: bit-identical, ok equal, on
-    random blocks, a no-pivot diagonally dominant block, and a singular
-    block (a repeated row)."""
+    random blocks, a no-pivot diagonally dominant block, a singular block
+    (a repeated row), and tie-heavy blocks that exercise the pivot rule's
+    tie-break by row after the swaps: integers in [-3, 3] (exact ties in
+    |column|) and quarter steps plus 1e-3 noise (near ties)."""
     rng = np.random.default_rng(b)
     d = rng.standard_normal((b, b)).astype(np.float32)
-    if case == "dominant":
+    if case == "integers":
+        d = rng.integers(-3, 4, (b, b)).astype(np.float32)
+    elif case == "quarters":
+        d = (rng.integers(-8, 9, (b, b)) / 4
+             + 1e-3 * rng.standard_normal((b, b))).astype(np.float32)
+    if case == "dominant" or not pivot:
         d += b * np.eye(b, dtype=np.float32)
     elif case == "singular":
         d[5] = d[2]
