@@ -23,7 +23,12 @@ fifth slice redesigned K1 (its m = 128 branch: the matrix in registers,
 two blocks an SM) and K4 (the block in registers, rows kept in place):
 both are held elementwise to their twins (bits equal up to the sign of a
 zero) and timed also by the profiler's device time, K1 beside its
-occupancy.
+occupancy. The sixth slice redesigned K2 and K3 as one thread-block
+cluster a panel: phase 1 prints each cluster's geometry and the
+occupancy query's answer, every path prints the clusters it launched,
+phases 4, 4b and 4d hold both byte-identical to K6 at k = 1 (the
+one-block body) and C = 8 to C = 16, and phase 7 times them by events
+and device time with the microseconds a pivot step takes.
 Each path runs with the kernels' launch counts zeroed just before it and
 read just after, and must have launched its kernels. It checks residual
 gates, repeat-run determinism, and times the kernels beside their twins,
@@ -201,10 +206,15 @@ def main() -> None:
     def zero_counts() -> None:
         for fn in wrappers.values():
             fn.launches = 0
+        blocked._plans.clear()    # so read_counts sees this path's clusters
 
     def read_counts(path: str, expect: tuple[str, ...]) -> dict:
         counts = {k: fn.launches for k, fn in wrappers.items()}
         log(f"  launches on {path}: {counts}")
+        kernel = {0: "K2", 1: "K3 fp32", 2: "K3 bf16"}
+        for (kind, m, b, *_), (geo, _) in blocked._plans.items():
+            log(f"  {kernel[kind]} cluster on {path} at (m, b) = ({m}, {b}):"
+                f" C = {geo.cluster}")
         for k in expect:
             check(counts[k] > 0, f"{k} launched on {path}")
         return counts
@@ -223,13 +233,31 @@ def main() -> None:
     nvcc = subprocess.run([cuda_build._nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     log("  " + nvcc.stdout.strip().splitlines()[-1])
-
-    # ---- phase 2: build ------------------------------------------------
-    phase("phase 2: build")
+    # K2 and K3 run one thread-block cluster a panel: C = 16 CTAs where
+    # cudaOccupancyMaxActiveClusters admits one cluster of 16 (non-portable
+    # size), else 8. The query needs the kernels, so they build here.
     t0 = time.perf_counter()
     lib_path = cuda_build.build()
     cuda_build.load()
     build_s = time.perf_counter() - t0
+    clusters = {}
+    for label, kind, m, b in (("K2 (4096, 128)", 0, 4096, 128),
+                              ("K2 (16384, 64)", 0, 16384, 64),
+                              ("K3 (4096, 128) fp32", 1, 4096, 128),
+                              ("K3 (20032, 64) bf16", 2, 20032, 64),
+                              ("K3 (65536, 32) bf16", 2, 65536, 32)):
+        geo, resident = blocked.cluster_plan(
+            kind, m, b, blocked._factor_geometry(m, b)[0])
+        clusters[label] = geo.cluster
+        log(f"  {label}: C = {geo.cluster} CTAs of {geo.threads} threads, "
+            f"{geo.lanes} lanes and {geo.smem} bytes of shared memory each "
+            f"(working set {'shared' if geo.wp_shared else 'global'}, "
+            f"strip rows {'shared' if geo.rows_shared else 'global'}); "
+            f"cudaOccupancyMaxActiveClusters: {resident}")
+        check(resident >= 1, f"{label}: the card admits the cluster")
+
+    # ---- phase 2: build report -----------------------------------------
+    phase("phase 2: build report")
     log(f"  built {lib_path.name} in {build_s:.1f} s")
     report = lib_path.with_name(lib_path.stem + ".ptxas.txt")
     for line in report.read_text().splitlines():
@@ -285,8 +313,26 @@ def main() -> None:
     # ---- phase 4: K2 against its twin -----------------------------------
     # Tolerance: pivrows identical, ok equal, C^T within 1e-4 of max|twin|
     # (the twin's deferred dot is a cuBLAS FP32 matmul, summed in another
-    # order than the kernel's FMA loop).
+    # order than the kernel's FMA loop). And bit for bit against K6 at
+    # k = 1, the one-block body that K2 ran before its cluster design
+    # (pivrows, C^T, ok), and at C = 8 against C = 16.
     phase("phase 4: K2 panel_factor vs its twin")
+
+    def k6_at_k1(strip, kb, mask, pivot):
+        p6, ct6, ok6 = lockstep.lockstep_factor(
+            strip[None].contiguous(), kb, mask[None].contiguous(),
+            pivot=pivot)
+        return p6[0], ct6[0], bool(ok6[0])
+
+    def at_cluster_8(fn):
+        """fn() with the panel kernels' clusters capped at 8 CTAs."""
+        cap = blocked.MAX_CLUSTER
+        blocked.MAX_CLUSTER = 8
+        try:
+            return fn()
+        finally:
+            blocked.MAX_CLUSTER = cap
+
     k2_abs = 0.0
     for m, b in ((4096, 128), (16384, 64)):
         strip = torch.from_numpy(
@@ -313,6 +359,16 @@ def main() -> None:
             check(bool(ok_k) == bool(ok_t) and bool(ok_k),
                   f"K2 {name}: ok equal (true)")
             check(d_rel <= 1e-4, f"K2 {name}: C^T within 1e-4")
+            p6, ct6, ok6 = k6_at_k1(strip, kb, mask, True)
+            check(torch.equal(p_k, p6) and bits_equal(ct_k, ct6)
+                  and bool(ok_k) == ok6,
+                  f"K2 {name}: bit-identical to K6 at k = 1")
+            p8, ct8, ok8 = at_cluster_8(
+                lambda: blocked.panel_factor(strip, kb, mask, pivot=True))
+            check(torch.equal(p_k, p8) and bits_equal(ct_k, ct8)
+                  and bool(ok_k) == bool(ok8),
+                  f"K2 {name}: C = 8 bit-identical to C = "
+                  f"{clusters[f'K2 ({m}, {b})']}")
             if label != "empty mask":
                 check(not bool(mask[p_k.long()].any()),
                       f"K2 {name}: no used row chosen")
@@ -346,6 +402,14 @@ def main() -> None:
             check(miss == 0, f"K3 {name}: pivot rows identical")
             check(not bool(mask[p_k.long()].any()),
                   f"K3 {name}: no used row chosen")
+            check(torch.equal(at_cluster_8(
+                lambda: blocked.pivot_search(strip, mask)), p_k),
+                f"K3 {name}: C = 8 pivot rows identical")
+            if dtype == torch.float32:
+                # K3 runs K2's steps: on an fp32 strip its pivot rows are
+                # K6's at k = 1.
+                check(torch.equal(p_k, k6_at_k1(strip, 0, mask, True)[0]),
+                      f"K3 {name}: pivot rows identical to K6 at k = 1")
 
     # ---- phase 4c: K4 and K5 against their twins ------------------------
     # Tolerance: ok equal; values within 1e-4 of max|twin|, and K4
@@ -444,12 +508,15 @@ def main() -> None:
         for label, kb, mask, pivot, s in runs:
             p6, ct6, ok6 = lockstep.lockstep_factor(s, kb, mask, pivot=pivot)
             torch.cuda.synchronize()
-            same = True
+            same = one = True
             for i in range(k):
                 p2, ct2, ok2 = blocked.panel_factor(s[i], kb, mask[i],
                                                     pivot=pivot)
                 same &= (torch.equal(p6[i], p2) and bits_equal(ct6[i], ct2)
                          and bool(ok6[i]) == bool(ok2))
+                p1, ct1, ok1 = k6_at_k1(s[i], kb, mask[i], pivot)
+                one &= (torch.equal(p1, p2) and bits_equal(ct1, ct2)
+                        and ok1 == bool(ok2))
             p_c, ct_c, ok_c = lockstep.lockstep_factor_twin(
                 s.cpu(), kb, mask.cpu(), pivot=pivot)
             p_t, ct_t, ok_t = lockstep.lockstep_factor_twin(s, kb, mask,
@@ -460,6 +527,8 @@ def main() -> None:
             log(f"  {name}: against the twin on the card max abs "
                 f"{d_abs:.3e}, rel {d_rel:.3e}")
             check(same, f"K6 {name}: bit-identical to K2 run per matrix")
+            check(one, f"K6 {name}: at k = 1 on each matrix, bit-identical "
+                  f"to K2")
             check(torch.equal(p6.cpu(), p_c) and bits_equal(ct6.cpu(), ct_c)
                   and ok6.tolist() == ok_c.tolist() == [True] * k,
                   f"K6 {name}: bit-identical to the twin on the CPU")
@@ -892,6 +961,14 @@ def main() -> None:
         lambda: blocked.pivot_search(s20, u20), iters=5)
     times["k3_twin_panel_20032_bf16_ms"] = events_ms(
         lambda: blocked.pivot_search_twin(s20, u20), iters=2)
+    # By the profiler too: the cluster kernels' own device time.
+    times["k2_panel_4096_device_ms"] = device_ms(
+        lambda: blocked.panel_factor(strip, 0, used, pivot=True), 10,
+        "panel_factor_cluster")
+    times["k3_panel_4096_fp32_device_ms"] = device_ms(
+        lambda: blocked.pivot_search(strip, used), 10, "pivot_search")
+    times["k3_panel_20032_bf16_device_ms"] = device_ms(
+        lambda: blocked.pivot_search(s20, u20), 10, "pivot_search")
     # K4 per launch at the split path's b = 64 (n = 20000) and b = 128
     # (the 4096^2 bf16-search call); K5 at getrf's b = 128. Yardsticks:
     # torch.linalg.inv and torch.linalg.lu_factor(pivot=False) on the same
@@ -989,12 +1066,16 @@ def main() -> None:
         "fused_inverse_batch4096_inv_per_s":
             4096 / (times["fused_inverse_batch4096_ms"] / 1e3),
         "k2_us_per_pivot_step": times["k2_panel_4096_ms"] * 1e3 / 128,
+        "k3_us_per_pivot_step_4096_fp32":
+            times["k3_panel_4096_fp32_ms"] * 1e3 / 128,
         "k3_us_per_pivot_step_20032_bf16":
             times["k3_panel_20032_bf16_ms"] * 1e3 / 64,
     }
     for key, val in {**times, **rates}.items():
         shown = "not measured" if val is None else f"{val:.4f}"
         log(f"  {key}: {shown}   [{card}]")
+    for label, c in clusters.items():
+        log(f"  {label}: C = {c} CTAs a panel")
 
     # Bounds from this run's shapes, at the operations each function needs
     # (not those of the algorithm that computes it): an n x n inverse
@@ -1052,13 +1133,28 @@ def main() -> None:
          "blocks_per_sm": k1_per_sm},
         # No PyTorch call computes a panel's pivot rows and C^T (K2) or a
         # packed-key pivot search (K3): library_ms is null for both.
-        record("K2 panel_factor", "panel_factor.cu", "blocked.py:255",
-               launches["K2"], k2_abs, times["k2_panel_4096_ms"],
-               times["k2_twin_panel_4096_ms"], None),
-        record("K3 pivot_search", "panel_factor.cu", "blocked.py:556",
-               counts_split["K3"], k3_mismatch,
-               times["k3_panel_20032_bf16_ms"],
-               times["k3_twin_panel_20032_bf16_ms"], None),
+        {**record("K2 panel_factor", "panel_factor.cu", "blocked.py:255",
+                  launches["K2"], k2_abs, times["k2_panel_4096_ms"],
+                  times["k2_twin_panel_4096_ms"], None),
+         "kernel_device_ms": times["k2_panel_4096_device_ms"],
+         "cluster": clusters["K2 (4096, 128)"],
+         "us_per_pivot_step": rates["k2_us_per_pivot_step"]},
+        # K3's record is (20032, 64) bf16 (the split path's panel);
+        # (4096, 128) fp32 (the LU route's) in the *_4096_fp32 keys.
+        {**record("K3 pivot_search", "panel_factor.cu", "blocked.py:556",
+                  counts_split["K3"], k3_mismatch,
+                  times["k3_panel_20032_bf16_ms"],
+                  times["k3_twin_panel_20032_bf16_ms"], None),
+         "kernel_device_ms": times["k3_panel_20032_bf16_device_ms"],
+         "cluster": clusters["K3 (20032, 64) bf16"],
+         "us_per_pivot_step": rates["k3_us_per_pivot_step_20032_bf16"],
+         "ms_4096_fp32": times["k3_panel_4096_fp32_ms"],
+         "kernel_device_ms_4096_fp32": times["k3_panel_4096_fp32_device_ms"],
+         "plain_ms_4096_fp32": times["k3_twin_panel_4096_fp32_ms"],
+         "bound_ms_4096_fp32": k3_fp32[0], "bound_by_4096_fp32": k3_fp32[1],
+         "cluster_4096_fp32": clusters["K3 (4096, 128) fp32"],
+         "us_per_pivot_step_4096_fp32":
+             rates["k3_us_per_pivot_step_4096_fp32"]},
         # K4's record is b = 64 (the split path's block); b = 128 (the
         # bf16-search call's) in the *_b128 keys.
         {**record("K4 small_inv", "small_inv.cu", "blocked.py:642",

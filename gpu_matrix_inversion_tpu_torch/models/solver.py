@@ -71,7 +71,8 @@ def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
 
     ``ok`` is the singularity flag per the reference's empty-on-singular
     contract (SURVEY.md section 2, C10). ``precision``/``search_bf16``
-    apply to the blocked route; the others ignore them.
+    apply to the blocked route; the others ignore them. An empty input
+    ((0, n, n), (k, 0, 0), (0, 0)) raises ``ValueError``.
     """
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
@@ -80,6 +81,10 @@ def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"expected (..., n, n) square matrix, got "
                          f"{tuple(a.shape)}")
+    if a.numel() == 0:
+        # One answer on every device and route (the JAX package raises too;
+        # K1's launcher refuses an empty batch).
+        raise ValueError(f"empty input {tuple(a.shape)}: nothing to invert")
     resolved = _resolve(method, a)
     if resolved in _NOT_PORTED:
         raise NotImplementedError(

@@ -43,6 +43,9 @@ A batch loops one matrix at a time, unless the opt-in lockstep route
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
 from gpu_matrix_inversion_tpu_torch.ops.fused import (SHARED_BYTES, _fms,
@@ -131,15 +134,8 @@ def _select_block_params(n: int, block_size: int, dtype,
     return b, use_kernels, search_bf16
 
 
-def effective_gemm_flops(n: int, *, block_size: int = DEFAULT_BLOCK_SIZE,
-                         search_bf16: bool = False,
-                         group_size: int | None = None,
-                         dtype=torch.float32) -> int:
-    """Flops the windowed blocked algorithm actually schedules for one
-    inversion (blocked.py:1072-1116): the outer composite GEMMs, the
-    internal rank-b panel updates and K2's in-kernel deferred dots
-    (counted as the reference counts them; K2 computes the first of the
-    two dots as a gather)."""
+def _gemm_flops(n: int, block_size: int, search_bf16: bool,
+                group_size: int | None, dtype, first_dot: bool) -> int:
     b, _, search_bf16 = _select_block_params(n, block_size, dtype,
                                              search_bf16)
     m = max(_round_up(n, b), b)
@@ -151,15 +147,43 @@ def effective_gemm_flops(n: int, *, block_size: int = DEFAULT_BLOCK_SIZE,
     tail = num_panels - num_groups * group
     sub, _ = _factor_geometry(m, b)
     emit = _emit_fused(m, b, True, search_bf16)
+    dots = 2 if first_dot else 1
     fl = 0
     for gsize in [group] * num_groups + ([tail] if tail else []):
         gw = gsize * b
         fl += 2 * m * gw * (m - gw)        # outer composite rank-gw GEMM
         fl += gsize * 2 * m * b * (gw + b)  # internal rank-b panel updates
-        fl += gsize * (b // sub) * 2 * (2 * b * sub * m)  # deferred dots
+        fl += gsize * (b // sub) * dots * (2 * b * sub * m)  # deferred dots
         if not emit:
             fl += gsize * 2 * m * b * b     # split-path cmat assembly
     return fl
+
+
+def effective_gemm_flops(n: int, *, block_size: int = DEFAULT_BLOCK_SIZE,
+                         search_bf16: bool = False,
+                         group_size: int | None = None,
+                         dtype=torch.float32) -> int:
+    """Flops the windowed blocked algorithm schedules for one inversion as
+    the JAX package counts them (blocked.py:1072-1116), equal to its
+    function: the outer composite GEMMs, the internal rank-b panel updates
+    and the panel kernels' two deferred dots a sub-panel. The panel kernels
+    here compute the first dot as a gather: :func:`scheduled_gemm_flops`
+    counts what the card runs."""
+    return _gemm_flops(n, block_size, search_bf16, group_size, dtype, True)
+
+
+def scheduled_gemm_flops(n: int, *, block_size: int = DEFAULT_BLOCK_SIZE,
+                         search_bf16: bool = False,
+                         group_size: int | None = None,
+                         dtype=torch.float32) -> int:
+    """Flops this port's blocked inversion schedules on the card: those of
+    :func:`effective_gemm_flops` but the first deferred dot (rows @ psel^T,
+    a contraction against one-hot rows, which K2 and K3 compute as a
+    gather of each row's values at the sub-panel's pivot lanes), 2 b m^2
+    fewer. A ``benchmark`` cell that reports an achieved rate
+    (``*_gflops_effective``, ``*_mfu``) uses this count; the effective
+    count is only for comparison with the JAX package's records."""
+    return _gemm_flops(n, block_size, search_bf16, group_size, dtype, False)
 
 
 # --------------------------------------------------------------------------
@@ -272,12 +296,100 @@ def _check_panel_inputs(name: str, stripT: torch.Tensor, used: torch.Tensor,
                          f"{stripT.device}")
 
 
-def _panel_smem_bytes(m: int, b: int, sub: int, elt: int) -> int:
-    """Shared memory of the panel kernel (``smem_bytes`` in
-    ``csrc/panel_factor.cu``): the search column, the gathered pivot-lane
-    values, the normalized column, lanes, reduction scratch, used flags."""
-    return (_round_up(m * elt, 16) + ((b - sub) * sub + 2 * sub) * 4
-            + (16 + 40) * 4 + m)
+# The cluster geometry of K2 and K3 (``cluster_body`` in
+# ``csrc/panel_factor.cu``, which checks what it is given).
+MAX_CLUSTER = 16          # CTAs; past 8 the runtime's non-portable size
+_PORTABLE_CLUSTER = 8
+_SLOTS = 16               # kMaxCluster: a CTA holds a slot for each CTA
+_MIN_LANES = 128          # a smaller m takes fewer CTAs
+_CLUSTER_THREADS = 512
+_ONE_CTA_PER_SM = 120 * 1024   # two such CTAs exceed one SM's 228 KiB
+_SLOT_BYTES = 4 * (2 * 16 + 4)  # one CTA's published column and key
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelCluster:
+    """How K2 or K3 runs one (m, b) panel: ``cluster`` CTAs, CTA r owning
+    lanes [r*lanes, (r+1)*lanes) of m, ``threads`` threads each, and
+    ``smem`` bytes of shared memory a CTA, which holds its slice of the
+    working set wp (2*sub, lanes) if ``wp_shared`` and of the strip rows
+    (b, lanes) if ``rows_shared`` (else each stays in global memory)."""
+    cluster: int
+    lanes: int
+    threads: int
+    wp_shared: bool
+    rows_shared: bool
+    smem: int
+
+
+def cluster_geometry(m: int, b: int, sub: int, elt: int,
+                     max_cluster: int = MAX_CLUSTER) -> PanelCluster:
+    """The per-CTA geometry of K2 and K3 for an (m, b) panel of ``elt``-byte
+    values, at most ``max_cluster`` CTAs.
+
+    C = max_cluster, cut so that every CTA keeps at least 128 lanes
+    (C = max(1, min(max_cluster, m // 128))); L = ceil(m / C), so no CTA is
+    empty. Threads: L rounded up to a warp, at most 512. A CTA's shared
+    memory (``cluster_smem_bytes`` in the source) always holds the gathered
+    pivot-lane values ((b - sub) rows of sub floats padded to a float4), a
+    slot for each of 16 CTAs and two step parities, two mbarriers, each
+    warp's normalized column, lanes, scratch and the used flags (L bytes);
+    then wp where it fits, then the strip rows where they fit beside it.
+    Each CTA asks at least 120 KiB, so no two share an SM. Raises ``ValueError`` where even the fixed part does
+    not fit one CTA's 232,448 bytes (m past ~3.6 million at C = 16).
+    """
+    c = max(1, min(max_cluster, m // _MIN_LANES))
+    lanes = -(-m // c)
+    threads = min(_CLUSTER_THREADS, _round_up(lanes, 32))
+    # g, slots, mbarriers, the warps' normalized columns, lanes + scratch +
+    # flag, used flags.
+    base = (_round_up((b - sub) * _round_up(sub, 4) * 4, 16)
+            + 2 * _SLOTS * _SLOT_BYTES + 2 * 8
+            + (_CLUSTER_THREADS // 32) * 32 * 4 + (16 + 32 + 4) * 4 + lanes)
+    wp = _round_up(2 * sub * lanes * elt, 16)
+    rows = _round_up(b * lanes * elt, 16)
+    wp_shared = base + wp <= SHARED_BYTES
+    rows_shared = wp_shared and base + wp + rows <= SHARED_BYTES
+    need = base + wp * wp_shared + rows * rows_shared
+    if need > SHARED_BYTES:
+        raise ValueError(f"the panel kernels at m={m}, b={b} need {need} "
+                         f"bytes of shared memory a CTA, more than "
+                         f"{SHARED_BYTES}")
+    return PanelCluster(c, lanes, threads, wp_shared, rows_shared,
+                        max(need, _ONE_CTA_PER_SM))
+
+
+_plans: dict = {}
+
+
+def cluster_plan(kind: int, m: int, b: int, sub: int):
+    """``(geometry, clusters)``: the :class:`PanelCluster` K2 (``kind`` 0)
+    or K3 (1 on fp32, 2 on bf16) launches with on the current card, and how
+    many such clusters it holds at once (``cudaOccupancyMaxActiveClusters``).
+    C is ``MAX_CLUSTER`` where the runtime admits one cluster of it, else
+    the portable 8; raises ``RuntimeError`` where neither is admitted (no
+    launch then falls back to anything else)."""
+    key = (kind, m, b, sub, MAX_CLUSTER, torch.cuda.current_device())
+    if key not in _plans:
+        lib = cuda_build.load()
+        tried = []
+        for cmax in dict.fromkeys((MAX_CLUSTER,
+                                   min(MAX_CLUSTER, _PORTABLE_CLUSTER))):
+            geo = cluster_geometry(m, b, sub, 2 if kind == 2 else 4, cmax)
+            count = ctypes.c_int(0)
+            err = lib.matinv_panel_clusters(
+                kind, m, b, sub, geo.cluster, geo.threads,
+                int(geo.wp_shared), int(geo.rows_shared), geo.smem,
+                ctypes.addressof(count))
+            tried.append((geo.cluster, err, count.value))
+            if err == 0 and count.value >= 1:
+                _plans[key] = (geo, count.value)
+                break
+        else:
+            raise RuntimeError(f"the card admits no cluster for the panel "
+                               f"kernel {kind} at m={m}, b={b} ((CTAs, "
+                               f"CUDA error, clusters) tried: {tried})")
+    return _plans[key]
 
 
 def panel_factor(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
@@ -287,8 +399,9 @@ def panel_factor(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
     ``stripT`` is the panel's (b, m) fp32 strip, transposed; ``kb`` the
     panel's first column; ``used`` the (m,) int32 cross-panel mask, read
     only (the caller marks the returned pivot rows). Same outputs as
-    :func:`panel_factor_twin`. A CUDA tensor launches the kernel; a CPU
-    tensor takes the twin.
+    :func:`panel_factor_twin`. A CUDA tensor launches the kernel, one
+    thread-block cluster (:func:`cluster_plan`); a CPU tensor takes the
+    twin.
     """
     _check_panel_inputs("K2", stripT, used, (torch.float32,))
     b, m = stripT.shape
@@ -297,16 +410,20 @@ def panel_factor(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
     if stripT.device.type == "cpu":
         return panel_factor_twin(stripT, kb, used, pivot=pivot)
     sub, kmask = _factor_geometry(m, b)
+    geo, _ = cluster_plan(0, m, b, sub)
     lib = cuda_build.load()
     dev = stripT.device
     pivrows = torch.empty(b, dtype=torch.int32, device=dev)
     ct = torch.empty((b, m), dtype=torch.float32, device=dev)
     ok = torch.empty(1, dtype=torch.int32, device=dev)
-    wp = torch.empty((2 * sub, m), dtype=torch.float32, device=dev)
+    wp = (None if geo.wp_shared else
+          torch.empty((2 * sub, m), dtype=torch.float32, device=dev))
     err = lib.matinv_panel_factor(
         stripT.data_ptr(), used.data_ptr(), pivrows.data_ptr(),
-        ct.data_ptr(), ok.data_ptr(), wp.data_ptr(), m, b, sub, kmask, kb,
-        int(pivot), torch.cuda.current_stream(dev).cuda_stream)
+        ct.data_ptr(), ok.data_ptr(), None if wp is None else wp.data_ptr(),
+        m, b, sub, kmask, kb, int(pivot), geo.cluster, geo.threads,
+        int(geo.wp_shared), int(geo.rows_shared), geo.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K2 panel_factor")
     panel_factor.launches += 1
     return pivrows, ct, ok[0] != 0
@@ -321,30 +438,32 @@ def pivot_search(stripT: torch.Tensor, used: torch.Tensor):
 
     ``stripT`` is the (b, m) strip, transposed, in fp32 or bf16; ``used``
     the (m,) int32 cross-panel mask, read only. A CUDA tensor launches the
-    kernel; a CPU tensor takes :func:`pivot_search_twin`. The kernel keeps
-    the search column and the used flags in one block's shared memory,
-    which serves m up to about 77000 in bf16 and 46000 in fp32 (the gates
-    ask at most 65536 of bf16 and 16384 of fp32); past that it raises.
+    kernel, one thread-block cluster (:func:`cluster_plan`); a CPU tensor
+    takes :func:`pivot_search_twin`. Each CTA keeps m/C lanes: their used
+    flags in shared memory always, their working set and strip rows where
+    they fit (:func:`cluster_geometry`), which serves m up to about 3.6
+    million at C = 16 (the gates ask at most 65536 of bf16 and 16384 of
+    fp32); past that it raises ``ValueError``.
     """
     _check_panel_inputs("K3", stripT, used, _KERNEL_DTYPES)
     b, m = stripT.shape
     if stripT.device.type == "cpu":
         return pivot_search_twin(stripT, used)
     sub, kmask = _factor_geometry(m, b)
-    smem = _panel_smem_bytes(m, b, sub, stripT.element_size())
-    if smem > SHARED_BYTES:
-        raise ValueError(f"K3 at m={m}, b={b} ({stripT.dtype}) needs {smem} "
-                         f"bytes of shared memory, more than one block's "
-                         f"{SHARED_BYTES}")
+    bf16 = stripT.dtype == torch.bfloat16
+    geo, _ = cluster_plan(2 if bf16 else 1, m, b, sub)
     lib = cuda_build.load()
     dev = stripT.device
     pivrows = torch.empty(b, dtype=torch.int32, device=dev)
-    w = torch.empty_like(stripT)
-    wp = torch.empty((2 * sub, m), dtype=stripT.dtype, device=dev)
+    w = None if geo.rows_shared else torch.empty_like(stripT)
+    wp = (None if geo.wp_shared else
+          torch.empty((2 * sub, m), dtype=stripT.dtype, device=dev))
     err = lib.matinv_pivot_search(
-        stripT.data_ptr(), used.data_ptr(), pivrows.data_ptr(), w.data_ptr(),
-        wp.data_ptr(), m, b, sub, kmask, int(stripT.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stripT.data_ptr(), used.data_ptr(), pivrows.data_ptr(),
+        None if w is None else w.data_ptr(),
+        None if wp is None else wp.data_ptr(), m, b, sub, kmask, int(bf16),
+        geo.cluster, geo.threads, int(geo.wp_shared), int(geo.rows_shared),
+        geo.smem, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K3 pivot_search")
     pivot_search.launches += 1
     return pivrows

@@ -36,7 +36,7 @@ import torch
 
 from gpu_matrix_inversion_tpu_torch.ops.blocked import (
     _apply_group, _apply_panel, _augment, _check_panel_inputs,
-    _factor_geometry, _group_sizes, _group_start, _panel_smem_bytes,
+    _factor_geometry, _group_sizes, _group_start,
     _select_block_params, _unpermute, panel_factor_twin)
 from gpu_matrix_inversion_tpu_torch.ops.fused import SHARED_BYTES, _round_up
 from gpu_matrix_inversion_tpu_torch.ops.refine import newton_schulz_refine
@@ -71,6 +71,15 @@ def _lockstep_k(nbatch: int, n: int, block_size: int, dtype,
     return k if k >= 2 else 0
 
 
+def _block_smem_bytes(m: int, b: int, sub: int) -> int:
+    """Shared memory of K6's one-block body (``smem_bytes`` in
+    ``csrc/panel_factor.cu``): the fp32 search column, the gathered
+    pivot-lane values, the normalized column, lanes, reduction scratch,
+    used flags."""
+    return (_round_up(m * 4, 16) + ((b - sub) * sub + 2 * sub) * 4
+            + (16 + 40) * 4 + m)
+
+
 def lockstep_factor_twin(stripsT: torch.Tensor, kb: int, used: torch.Tensor,
                          *, pivot: bool):
     """Plain twin of K6: K2's twin applied to each matrix. Returns
@@ -102,7 +111,7 @@ def lockstep_factor(stripsT: torch.Tensor, kb: int, used: torch.Tensor, *,
     if stripsT.device.type == "cpu":
         return lockstep_factor_twin(stripsT, kb, used, pivot=pivot)
     sub, kmask = _factor_geometry(m, b)
-    smem = _panel_smem_bytes(m, b, sub, 4)
+    smem = _block_smem_bytes(m, b, sub)
     if smem > SHARED_BYTES:
         raise ValueError(f"K6 at m={m}, b={b} needs {smem} bytes of shared "
                          f"memory, more than one block's {SHARED_BYTES}")

@@ -33,11 +33,17 @@ SIGNATURES = {
     "matinv_fused_gj": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # blocks (int *)
     "matinv_fused_gj_occupancy": (_P,),
-    # stripT, used, pivrows, ct, ok, wp, m, b, sub, kmask, kb, pivot, stream
+    # stripT, used, pivrows, ct, ok, wp, m, b, sub, kmask, kb, pivot,
+    # cluster, threads, wp_shared, rows_shared, smem, stream
     "matinv_panel_factor": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P),
-    # stripT, used, pivrows, w, wp, m, b, sub, kmask, bf16, stream
-    "matinv_pivot_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+                            _I, _I, _I, _I, _I, _P),
+    # stripT, used, pivrows, w, wp, m, b, sub, kmask, bf16, cluster,
+    # threads, wp_shared, rows_shared, smem, stream
+    "matinv_pivot_search": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P),
+    # kind, m, b, sub, cluster, threads, wp_shared, rows_shared, smem,
+    # clusters (int *)
+    "matinv_panel_clusters": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # a, inv, ok, batch, b, pivot, stream
     "matinv_small_inv": (_P, _P, _P, _I, _I, _I, _P),
     # a, out, ok, batch, b, stream

@@ -18,7 +18,8 @@ one card. It prints and writes to ``--out`` a JSON record:
   (64, 128, 128) bf16, on (512, 256, 256) (the global-workspace branch),
   and its pivot rows and ok flags on a (3, 128, 128) batch with an
   all-ones and a NaN member; K2 on a (128, 4096) strip; K3 on a
-  (64, 20032) bf16 strip; K4 on 257 blocks at b = 64 and 128 (standard
+  (64, 20032) bf16 strip and on K2's (128, 4096) fp32 one; K4 on 257
+  blocks at b = 64 and 128 (standard
   normal; the last block singular, of which only its ok flag counts) and
   the ok flag of a block with a NaN; K5 on 257-block batches at b = 128, 64, 40 and 8
   (standard normal plus b I, the last block with a zero pivot at step 7,
@@ -158,6 +159,7 @@ def measure() -> dict:
         "k1_512x256": fused.gj_kernel(x1_work, pivot=True),
         "k2_128x4096": blocked.panel_factor(s2, 0, u2, pivot=True),
         "k3_64x20032_bf16": blocked.pivot_search(s3, u3),
+        "k3_128x4096": blocked.pivot_search(s2, u2),
         **{f"k4_257x{b}": k4_batch(x) for b, x in x4.items()},
         "k4_nan": blocked.invert_small(x4_nan, pivot=True)[1],
         **{f"k5_257x{b}": lu.small_lu(x) for b, x in x5.items()},
@@ -184,6 +186,8 @@ def measure() -> dict:
         ("k2_128x4096", lambda: blocked.panel_factor(s2, 0, u2, pivot=True),
          10, "panel_factor"),
         ("k3_64x20032_bf16", lambda: blocked.pivot_search(s3, u3), 5,
+         "pivot_search"),
+        ("k3_128x4096", lambda: blocked.pivot_search(s2, u2), 10,
          "pivot_search"),
         ("k4_b64", lambda: blocked.invert_small(x4_b64, pivot=True), 200,
          "small_inv"),

@@ -216,6 +216,20 @@ def test_unported_methods_raise(method):
         tmi.inverse(torch.eye(8), method="nope")
 
 
+@pytest.mark.parametrize("shape", [(0, 8, 8), (3, 0, 0), (0, 0)])
+def test_empty_input_raises_in_both_packages(shape):
+    """Both packages refuse an empty input: the port with one ValueError,
+    raised before any route (so on the CPU and the card alike), the JAX
+    package with its own error. The flat API's order <= 0 contract
+    (test_empty_vector_contract) returns an empty vector before either."""
+    with pytest.raises(ValueError, match="empty input"):
+        tmi.inverse(torch.zeros(shape))
+    with pytest.raises(ValueError, match="empty input"):
+        tmi.inverse(torch.zeros(shape), method="blocked")
+    with pytest.raises(Exception):
+        jmi.inverse(np.zeros(shape, dtype=np.float32))
+
+
 @pytest.mark.parametrize("flag", [False, True])
 def test_precision_leaves_tf32_flag_unchanged(flag):
     """precision="high" runs the blocked GEMMs under TF32 inside a scope

@@ -182,3 +182,19 @@ def test_geometry_matches_jax(n):
     assert (tblocked._select_block_params(n, 256, torch.float64, False)
             == jblocked._select_block_params(n, 256, jnp.float64, False))
 
+
+
+@pytest.mark.parametrize("n", [100, 1024, 4096, 16400, 20000])
+def test_scheduled_flops_drop_the_gathered_dot(n):
+    """The scheduled count is the effective (JAX) count less the first
+    deferred dot, which K2 and K3 compute as a gather: 2 b * sub * m per
+    sub-panel, b / sub sub-panels a panel, m / b panels, so 2 b m^2."""
+    for search_bf16 in (False, True):
+        b, _, _ = tblocked._select_block_params(n, 256, torch.float32,
+                                                search_bf16)
+        m = max(tblocked._round_up(n, b), b)
+        eff = tblocked.effective_gemm_flops(n, search_bf16=search_bf16)
+        sched = tblocked.scheduled_gemm_flops(n, search_bf16=search_bf16)
+        assert eff - sched == 2 * b * m * m
+        assert eff == jblocked.effective_gemm_flops(n,
+                                                    search_bf16=search_bf16)

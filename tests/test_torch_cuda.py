@@ -156,6 +156,128 @@ def test_k3_matches_twin(cuda, m, b, dtype):
     assert not bool(used[p_k.long()].any())
 
 
+def _k6_at_k1(strip, kb, used, pivot):
+    """K6 on one matrix: the one-block body, K2's bits before the cluster
+    design."""
+    from gpu_matrix_inversion_tpu_torch.ops import lockstep
+    p, ct, ok = lockstep.lockstep_factor(strip[None].contiguous(), kb,
+                                         used[None].contiguous(), pivot=pivot)
+    return p[0], ct[0], bool(ok[0])
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _strip_and_mask(cuda, m, b, mask, seed, dtype=torch.float32):
+    """A standard normal (b, m) strip and an empty mask, or the mask of a
+    prior panel (the twin's pivot rows of another strip)."""
+    rng = np.random.default_rng(seed)
+    strip = torch.from_numpy(
+        rng.standard_normal((b, m)).astype(np.float32)).to(cuda)
+    used = torch.zeros(m, dtype=torch.int32, device=cuda)
+    if mask == "prior":
+        other = torch.from_numpy(
+            rng.standard_normal((b, m)).astype(np.float32)).to(dtype)
+        used[blocked.pivot_search_twin(other, used.cpu()).long()] = 1
+    return strip.to(dtype), used
+
+
+K2_GATE_SHAPES = [(256, 64), (1024, 128), (2048, 128), (4096, 128),
+                  (8192, 128), (16384, 64)]
+
+
+@pytest.mark.parametrize("mask", ["empty", "prior"])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("m,b", K2_GATE_SHAPES)
+def test_k2_cluster_bits(cuda, monkeypatch, m, b, pivot, mask):
+    """K2, one cluster per panel, at every shape the gates give it: pivot
+    rows, C^T and ok byte-identical to K6 at k = 1 (the one-block body)
+    and the pivot rows to the twin on the CPU; at C = 8 byte-identical to
+    C = 16. Without pivoting the strip is made dominant at rows kb..kb+b."""
+    strip, used = _strip_and_mask(cuda, m, b, mask, m + b)
+    kb = b if mask == "prior" else 0
+    if not pivot:
+        strip[:, kb:kb + b] += b * torch.eye(b, device=cuda)
+    before = blocked.panel_factor.launches
+    p2, ct2, ok2 = blocked.panel_factor(strip, kb, used, pivot=pivot)
+    assert blocked.panel_factor.launches == before + 1
+    p6, ct6, ok6 = _k6_at_k1(strip, kb, used, pivot)
+    assert torch.equal(p2, p6) and torch.equal(_bits(ct2), _bits(ct6))
+    assert bool(ok2) and ok6
+    p_t = blocked.panel_factor_twin(strip.cpu(), kb, used.cpu(),
+                                    pivot=pivot)[0]
+    assert torch.equal(p2.cpu(), p_t)
+    if pivot:
+        assert not bool(used[p2.long()].any())
+    monkeypatch.setattr(blocked, "MAX_CLUSTER", 8)
+    geo, _ = blocked.cluster_plan(0, m, b, blocked._factor_geometry(m, b)[0])
+    assert geo.cluster <= 8
+    p8, ct8, ok8 = blocked.panel_factor(strip, kb, used, pivot=pivot)
+    assert torch.equal(p8, p2) and torch.equal(_bits(ct8), _bits(ct2))
+    assert bool(ok8) == bool(ok2)
+
+
+@pytest.mark.parametrize("mask", ["empty", "prior"])
+@pytest.mark.parametrize("m,b,dtype", [
+    (4096, 128, torch.float32), (4096, 128, torch.bfloat16),
+    (4096, 256, torch.float32), (20032, 64, torch.bfloat16),
+    (65536, 32, torch.bfloat16)])
+def test_k3_cluster_bits(cuda, monkeypatch, m, b, dtype, mask):
+    """K3 at every shape the gates give it: pivot rows equal to the twin's
+    on the CPU, equal at C = 8 and C = 16, and for an fp32 strip equal to
+    K6's at k = 1 (K3 runs K2's steps)."""
+    strip, used = _strip_and_mask(cuda, m, b, mask, m + b + 1, dtype)
+    p3 = blocked.pivot_search(strip, used)
+    assert torch.equal(p3.cpu(), blocked.pivot_search_twin(strip.cpu(),
+                                                           used.cpu()))
+    if dtype == torch.float32:
+        assert torch.equal(p3, _k6_at_k1(strip, 0, used, True)[0])
+    monkeypatch.setattr(blocked, "MAX_CLUSTER", 8)
+    assert torch.equal(blocked.pivot_search(strip, used), p3)
+
+
+@pytest.mark.parametrize("case", ["singular", "nan"])
+def test_k2_cluster_flags_singular_and_nan(cuda, case):
+    """A strip with an all-zero column (a zero pivot at step 5) and one with
+    a NaN: ok false, as K6 at k = 1 and the twin say, and the same bytes as
+    K6 at k = 1."""
+    strip, used = _strip_and_mask(cuda, 4096, 128, "empty", 7)
+    if case == "singular":
+        strip[5] = 0.0
+    else:
+        strip[9, 300] = float("nan")
+    p2, ct2, ok2 = blocked.panel_factor(strip, 0, used, pivot=True)
+    p6, ct6, ok6 = _k6_at_k1(strip, 0, used, True)
+    ok_t = blocked.panel_factor_twin(strip.cpu(), 0, used.cpu(),
+                                     pivot=True)[2]
+    assert not bool(ok2) and not ok6 and not bool(ok_t)
+    assert torch.equal(p2, p6) and torch.equal(_bits(ct2), _bits(ct6))
+
+
+def test_cluster_launch_is_checked(cuda):
+    """The cluster geometry the card admits: C = 16 or the portable 8 at
+    (4096, 128), with at least one cluster resident; a geometry the kernel
+    refuses raises and launches nothing."""
+    from gpu_matrix_inversion_tpu_torch.utils import cuda_build
+    geo, clusters = blocked.cluster_plan(0, 4096, 128, 16)
+    assert geo.cluster in (8, 16) and clusters >= 1
+    lib = cuda_build.load()
+    strip = torch.zeros((128, 4096), device=cuda)
+    out = torch.empty((128, 4096), device=cuda)
+    used = torch.zeros(4096, dtype=torch.int32, device=cuda)
+    pivrows = torch.empty(128, dtype=torch.int32, device=cuda)
+    ok = torch.empty(1, dtype=torch.int32, device=cuda)
+    err = lib.matinv_panel_factor(
+        strip.data_ptr(), used.data_ptr(), pivrows.data_ptr(),
+        out.data_ptr(), ok.data_ptr(), None, 4096, 128, 16, 4095, 0, 1,
+        geo.cluster, geo.threads, 1, 1, 1024,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0                        # smem below the placement's
+    with pytest.raises(RuntimeError, match="K2"):
+        cuda_build.check(err, "K2 panel_factor")
+
+
 @pytest.mark.parametrize("b,pivot", [(64, True), (128, True), (32, False)])
 def test_k4_matches_twin(cuda, b, pivot):
     # 256 random blocks, so that row swaps happen at nearly every step of

@@ -117,21 +117,68 @@ def test_pivot_search_agrees_with_k2():
                                65536])
 def test_pivot_search_shared_memory_serves_the_gates(n):
     """Every (m, b, strip type) the gates hand K3 -- the split path's bf16
-    strips up to m = 65536 at b = 32 (192 KiB), fp32 strips up to
-    m = 16384, the FP64 tier's b = 256 at m = 4096 -- fits one block's
-    shared memory; an fp32 strip of m = 65536 would not."""
+    strips up to m = 65536 at b = 32, fp32 strips up to m = 16384, the FP64
+    tier's b = 256 at m = 4096 -- fits one CTA's shared memory at C = 16
+    and at C = 8, with the working set in shared memory wherever it fits
+    (so up to m ~ 55,000 in bf16 at C = 16)."""
+    shapes = []
     for search_bf16 in (False, True):
         b, use_kernels, bf16 = tblocked._select_block_params(
             n, 256, torch.float32, search_bf16)
-        m = tblocked._round_up(n, b)
-        sub, _ = tblocked._factor_geometry(m, b)
         assert use_kernels
-        assert (tblocked._panel_smem_bytes(m, b, sub, 2 if bf16 else 4)
-                <= tblocked.SHARED_BYTES)
-    sub, _ = tblocked._factor_geometry(4096, 256)
-    assert tblocked._panel_smem_bytes(4096, 256, sub, 4) <= \
-        tblocked.SHARED_BYTES
-    assert tblocked._panel_smem_bytes(65536, 32, 16, 4) > tblocked.SHARED_BYTES
+        shapes.append((tblocked._round_up(n, b), b, 2 if bf16 else 4))
+    shapes.append((4096, 256, 4))
+    for m, b, elt in shapes:
+        sub, _ = tblocked._factor_geometry(m, b)
+        for cmax in (16, 8):
+            geo = tblocked.cluster_geometry(m, b, sub, elt, cmax)
+            assert geo.smem <= tblocked.SHARED_BYTES
+            if cmax == 16:
+                assert geo.wp_shared == (elt == 4 or m <= 55000)
+
+
+# The shapes chip_smoke.py and the on-card tests give K2 (fp32) and K3.
+GATE_SHAPES = [(256, 64, 4), (1024, 128, 4), (2048, 128, 4), (4096, 128, 4),
+               (8192, 128, 4), (16384, 64, 4), (4096, 128, 2),
+               (4096, 256, 4), (20032, 64, 2), (65536, 32, 2)]
+
+
+@pytest.mark.parametrize("m,b,elt", GATE_SHAPES)
+def test_cluster_geometry(m, b, elt):
+    """K2's and K3's cluster: at most 16 (or 8) CTAs, each with at least
+    128 lanes, the lanes covering m exactly once with no CTA empty; a CTA's
+    shared memory within 232,448 bytes and at least 120 KiB (one CTA an
+    SM), holding the working set where it fits and the strip rows only
+    beside it; the bf16 (65536, 32) case, past m ~ 55,000, takes its
+    working set from global memory at both sizes."""
+    sub, _ = tblocked._factor_geometry(m, b)
+    for cmax in (16, 8):
+        geo = tblocked.cluster_geometry(m, b, sub, elt, cmax)
+        assert 1 <= geo.cluster <= cmax
+        assert geo.cluster == max(1, min(cmax, m // 128))
+        starts = [r * geo.lanes for r in range(geo.cluster)]
+        ends = [min(m, s + geo.lanes) for s in starts]
+        assert all(e > s for s, e in zip(starts, ends))
+        assert starts[0] == 0 and ends[-1] == m
+        assert all(e == s for e, s in zip(ends, starts[1:]))
+        assert geo.threads % 32 == 0 and 32 <= geo.threads <= 512
+        assert 120 * 1024 <= geo.smem <= 232448 == tblocked.SHARED_BYTES
+        assert geo.wp_shared or not geo.rows_shared
+        if (m, b, elt) == (65536, 32, 2):
+            assert not geo.wp_shared
+    geo = tblocked.cluster_geometry(m, b, sub, elt)
+    if (m, b) in ((4096, 128), (2048, 128)):
+        assert geo.wp_shared and geo.rows_shared     # C^T slice in shared
+    if (m, b, elt) == (20032, 64, 2):
+        assert geo.wp_shared and not geo.rows_shared
+
+
+def test_cluster_geometry_raises_past_one_cta():
+    """Past ~3.6 million lanes at C = 16 even the used flags leave one
+    CTA's shared memory: the wrapper raises rather than launch."""
+    tblocked.cluster_geometry(3_500_000, 32, 16, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        tblocked.cluster_geometry(3_700_000, 32, 16, 2)
 
 
 def _jax_invert_small(d, pivot):
