@@ -26,9 +26,18 @@ zero) and timed also by the profiler's device time, K1 beside its
 occupancy. The sixth slice redesigned K2 and K3 as one thread-block
 cluster a panel: phase 1 prints each cluster's geometry and the
 occupancy query's answer, every path prints the clusters it launched,
-phases 4, 4b and 4d hold both byte-identical to K6 at k = 1 (the
-one-block body) and C = 8 to C = 16, and phase 7 times them by events
-and device time with the microseconds a pivot step takes.
+phases 4 and 4b hold both byte-identical to their twins run on the CPU
+and C = 8 to C = 16, and phase 7 times them by events and device time
+with the microseconds a pivot step takes. The seventh slice redesigned
+K1's m = 256 .. 640 branch (one thread-block cluster per matrix, the
+matrix on chip; no workspace) and K6 (k clusters of K2's body): phase 1
+prints their geometries and how many clusters the card holds, phase 3
+holds K1's branch at the smallest C byte-identical to the largest and
+checks tie-heavy inputs at m = 256 and 640, phase 4d holds K6 bit for bit
+to K2 per matrix and to its twin on the CPU, and phase 7 times K1 at
+(512, 256^2) and (1, 256^2) beside batched ``torch.linalg.inv``, the
+product call at n = 256, K6 at both lockstep shapes, the lockstep calls'
+idle share, and the fused calls' peak memory.
 Each path runs with the kernels' launch counts zeroed just before it and
 read just after, and must have launched its kernels. It checks residual
 gates, repeat-run determinism, and times the kernels beside their twins,
@@ -255,6 +264,26 @@ def main() -> None:
             f"strip rows {'shared' if geo.rows_shared else 'global'}); "
             f"cudaOccupancyMaxActiveClusters: {resident}")
         check(resident >= 1, f"{label}: the card admits the cluster")
+    # K6 runs k clusters of K2's geometry, one per matrix; past the
+    # resident count they run in waves.
+    for k, m in ((8, 1024), (4, 2048)):
+        geo, resident = blocked.cluster_plan(
+            0, m, 128, blocked._factor_geometry(m, 128)[0])
+        clusters[f"K6 (k={k}, {m}, 128)"] = geo.cluster
+        log(f"  K6 k = {k} at (m, b) = ({m}, 128): {k} clusters of C = "
+            f"{geo.cluster} CTAs ({k * geo.cluster} SMs); "
+            f"cudaOccupancyMaxActiveClusters: {resident}")
+        check(resident >= 1, f"K6 at m = {m}: the card admits the cluster")
+    # K1 at m = 256 .. 640: one cluster per matrix, C by the batch.
+    for m, bsz in ((256, 1), (256, 512), (384, 1), (384, 64), (512, 1),
+                   (640, 64)):
+        geo, resident = fused.cluster_plan(m, bsz)
+        clusters[f"K1 ({bsz}, {m}^2)"] = geo.cluster
+        log(f"  K1 ({bsz}, {m}^2): C = {geo.cluster} CTAs of {geo.rows} "
+            f"rows, {geo.smem} bytes of shared memory each; "
+            f"cudaOccupancyMaxActiveClusters: {resident}")
+        check(resident >= 1, f"K1 ({bsz}, {m}^2): the card admits the "
+              f"cluster")
 
     # ---- phase 2: build report -----------------------------------------
     phase("phase 2: build report")
@@ -282,15 +311,24 @@ def main() -> None:
     # batch and the single 256 x 256 matrix of phase 5's fused call.
     cases = [("(4096,128,128) register branch", (4096, 128), True,
               torch.float32),
-             ("single 256x256 (m=256) global workspace", (1, 256), True,
+             ("single 256x256 (m=256) cluster", (1, 256), True,
               torch.float32),
              ("(64,128,128) no pivot", (64, 128), False, torch.float32),
              ("(64,128,128) bf16", (64, 128), True, torch.bfloat16),
-             ("(4,640,640) global workspace", (4, 640), True, torch.float32),
-             ("single 300x300 (m=384) global workspace", (1, 300), True,
-              torch.float32)]
+             ("(4,640,640) cluster", (4, 640), True, torch.float32),
+             ("single 300x300 (m=384) cluster", (1, 300), True,
+              torch.float32),
+             ("(2,256,256) cluster, integers in [-3, 3]", (2, 256), True,
+              torch.float32),
+             ("(2,640,640) cluster, integers in [-3, 3]", (2, 640), True,
+              torch.float32),
+             ("(2,512,512) cluster bf16, no pivot", (2, 512), False,
+              torch.bfloat16)]
     for name, (bsz, n), pivot, dtype in cases:
-        a = rng.standard_normal((bsz, n, n)).astype(np.float32)
+        if "integers" in name:     # exact ties in |column|
+            a = rng.integers(-3, 4, (bsz, n, n)).astype(np.float32)
+        else:
+            a = rng.standard_normal((bsz, n, n)).astype(np.float32)
         if not pivot:
             a += n * np.eye(n, dtype=np.float32)
         m = fused._round_up(n, 128)
@@ -309,20 +347,38 @@ def main() -> None:
         check(d_rel <= 1e-4, f"K1 {name}: values within 1e-4")
         hold_to_twin(f"K1 {name}", inv_k, inv_t)
         del inv_k, inv_t
+    # The cluster branch at the smallest C that fits against the C a small
+    # batch grows to: byte-identical.
+    for m, bsz, c_min in ((256, 1, 2), (256, 4, 2), (384, 1, 4)):
+        x = torch.from_numpy(rng.integers(-3, 4, (bsz, m, m)).astype(
+            np.float32) + rng.standard_normal((bsz, m, m)).astype(
+            np.float32)).to(dev)
+        runs = {}
+        for cmax in (c_min, fused.MAX_CLUSTER):
+            cap = fused.MAX_CLUSTER
+            fused.MAX_CLUSTER = cmax
+            try:
+                c = fused.cluster_plan(m, bsz)[0].cluster
+                runs[c] = fused.gj_kernel(x, pivot=True)
+            finally:
+                fused.MAX_CLUSTER = cap
+        (c1, (i1, p1, o1)), (c2, (i2, p2, o2)) = runs.items()
+        check(c1 != c2 and bits_equal(i1, i2) and torch.equal(p1, p2)
+              and torch.equal(o1, o2) and bool(o1.all()),
+              f"K1 ({bsz}, {m}^2): C = {c1} byte-identical to C = {c2}")
 
     # ---- phase 4: K2 against its twin -----------------------------------
     # Tolerance: pivrows identical, ok equal, C^T within 1e-4 of max|twin|
     # (the twin's deferred dot is a cuBLAS FP32 matmul, summed in another
-    # order than the kernel's FMA loop). And bit for bit against K6 at
-    # k = 1, the one-block body that K2 ran before its cluster design
-    # (pivrows, C^T, ok), and at C = 8 against C = 16.
+    # order than the kernel's FMA loop). And bit for bit against the twin
+    # run on the CPU, whose dot sums in the kernel's order (pivrows, C^T,
+    # ok), and at C = 8 against C = 16.
     phase("phase 4: K2 panel_factor vs its twin")
 
-    def k6_at_k1(strip, kb, mask, pivot):
-        p6, ct6, ok6 = lockstep.lockstep_factor(
-            strip[None].contiguous(), kb, mask[None].contiguous(),
-            pivot=pivot)
-        return p6[0], ct6[0], bool(ok6[0])
+    def twin_on_cpu(strip, kb, mask, pivot):
+        p, ct, ok = blocked.panel_factor_twin(strip.cpu(), kb, mask.cpu(),
+                                              pivot=pivot)
+        return p, ct, bool(ok)
 
     def at_cluster_8(fn):
         """fn() with the panel kernels' clusters capped at 8 CTAs."""
@@ -359,10 +415,10 @@ def main() -> None:
             check(bool(ok_k) == bool(ok_t) and bool(ok_k),
                   f"K2 {name}: ok equal (true)")
             check(d_rel <= 1e-4, f"K2 {name}: C^T within 1e-4")
-            p6, ct6, ok6 = k6_at_k1(strip, kb, mask, True)
-            check(torch.equal(p_k, p6) and bits_equal(ct_k, ct6)
-                  and bool(ok_k) == ok6,
-                  f"K2 {name}: bit-identical to K6 at k = 1")
+            p_c, ct_c, ok_c = twin_on_cpu(strip, kb, mask, True)
+            check(torch.equal(p_k.cpu(), p_c) and bits_equal(ct_k.cpu(), ct_c)
+                  and bool(ok_k) == ok_c,
+                  f"K2 {name}: bit-identical to the twin on the CPU")
             p8, ct8, ok8 = at_cluster_8(
                 lambda: blocked.panel_factor(strip, kb, mask, pivot=True))
             check(torch.equal(p_k, p8) and bits_equal(ct_k, ct8)
@@ -407,9 +463,10 @@ def main() -> None:
                 f"K3 {name}: C = 8 pivot rows identical")
             if dtype == torch.float32:
                 # K3 runs K2's steps: on an fp32 strip its pivot rows are
-                # K6's at k = 1.
-                check(torch.equal(p_k, k6_at_k1(strip, 0, mask, True)[0]),
-                      f"K3 {name}: pivot rows identical to K6 at k = 1")
+                # K2's.
+                check(torch.equal(p_k, blocked.panel_factor(
+                    strip, 0, mask, pivot=True)[0]),
+                      f"K3 {name}: pivot rows identical to K2's")
 
     # ---- phase 4c: K4 and K5 against their twins ------------------------
     # Tolerance: ok equal; values within 1e-4 of max|twin|, and K4
@@ -508,15 +565,12 @@ def main() -> None:
         for label, kb, mask, pivot, s in runs:
             p6, ct6, ok6 = lockstep.lockstep_factor(s, kb, mask, pivot=pivot)
             torch.cuda.synchronize()
-            same = one = True
+            same = True
             for i in range(k):
                 p2, ct2, ok2 = blocked.panel_factor(s[i], kb, mask[i],
                                                     pivot=pivot)
                 same &= (torch.equal(p6[i], p2) and bits_equal(ct6[i], ct2)
                          and bool(ok6[i]) == bool(ok2))
-                p1, ct1, ok1 = k6_at_k1(s[i], kb, mask[i], pivot)
-                one &= (torch.equal(p1, p2) and bits_equal(ct1, ct2)
-                        and ok1 == bool(ok2))
             p_c, ct_c, ok_c = lockstep.lockstep_factor_twin(
                 s.cpu(), kb, mask.cpu(), pivot=pivot)
             p_t, ct_t, ok_t = lockstep.lockstep_factor_twin(s, kb, mask,
@@ -527,8 +581,6 @@ def main() -> None:
             log(f"  {name}: against the twin on the card max abs "
                 f"{d_abs:.3e}, rel {d_rel:.3e}")
             check(same, f"K6 {name}: bit-identical to K2 run per matrix")
-            check(one, f"K6 {name}: at k = 1 on each matrix, bit-identical "
-                  f"to K2")
             check(torch.equal(p6.cpu(), p_c) and bits_equal(ct6.cpu(), ct_c)
                   and ok6.tolist() == ok_c.tolist() == [True] * k,
                   f"K6 {name}: bit-identical to the twin on the CPU")
@@ -924,15 +976,62 @@ def main() -> None:
         lambda: torch.linalg.inv(xb), 3)
     times["fused_inverse_batch4096_ms"] = events_ms(lambda: inverse(xb),
                                                     iters=5)
-    # K1's global-workspace branch on a batch that fills the card: 512
-    # (256, 512) workspaces, 268 MB, far past the 50 MB L2.
+    # K1's cluster branch on a batch that fills the card (512 matrices at
+    # m = 256, C = 2) and on one matrix (C = 8), beside batched
+    # torch.linalg.inv on the same batch (the port never calls it), by
+    # events and by device time; the product call matrix_inv_32 at
+    # n = 256 end to end (host transfer and readback included); one 512^2
+    # matrix at C = 8 (the geometry's cap for a growing C) and at 16.
     xw = torch.from_numpy(
         rng.standard_normal((512, 256, 256)).astype(np.float32)).to(dev)
+    x1 = xw[:1].contiguous()
     times["k1_batch512_m256_ms"] = events_ms(
         lambda: fused.gj_kernel(xw, pivot=True), iters=5)
+    times["k1_batch512_m256_device_ms"] = device_ms(
+        lambda: fused.gj_kernel(xw, pivot=True), 3, "fused_gj")
     times["k1_twin_batch512_m256_ms"] = events_ms(
         lambda: fused.gj_twin(xw, pivot=True), iters=1)
-    del xw
+    times["k1_library_inv_batch512_m256_ms"] = events_ms(
+        lambda: torch.linalg.inv(xw), iters=5)
+    times["k1_library_inv_batch512_m256_device_ms"] = device_ms(
+        lambda: torch.linalg.inv(xw), 3)
+    times["k1_one_m256_ms"] = events_ms(
+        lambda: fused.gj_kernel(x1, pivot=True), iters=20)
+    times["k1_one_m256_device_ms"] = device_ms(
+        lambda: fused.gj_kernel(x1, pivot=True), 10, "fused_gj")
+    times["k1_library_inv_one_m256_ms"] = events_ms(
+        lambda: torch.linalg.inv(x1), iters=20)
+    flat256 = a256.reshape(-1)
+    times["matrix_inv_32_n256_ms"] = events_ms(
+        lambda: matrix_inv_32(flat256, 256, device="cuda"), iters=10)
+    x512 = torch.from_numpy(
+        rng.standard_normal((1, 512, 512)).astype(np.float32)).to(dev)
+    for grow in (8, 16):
+        cap = fused.GROW_CLUSTER
+        fused.GROW_CLUSTER = grow
+        try:
+            c = fused.cluster_plan(512, 1)[0].cluster
+            times[f"k1_one_m512_C{c}_ms"] = events_ms(
+                lambda: fused.gj_kernel(x512, pivot=True), iters=10)
+        finally:
+            fused.GROW_CLUSTER = cap
+    # Peak device memory of the fused calls (input, output and all).
+    peak = {}
+    for key, shape in (("batch512_n256", (512, 256, 256)),
+                       ("batch64_n640", (64, 640, 640))):
+        xp = (xw if shape[0] == 512 else torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 1e6
+        inverse(xp)
+        torch.cuda.synchronize()
+        peak[key] = torch.cuda.max_memory_allocated() / 1e6 - base_mb
+        log(f"  fused inverse {shape}: peak device memory {peak[key]:.1f} MB "
+            f"above the {base_mb:.1f} MB held before the call")
+        times[f"k1_{key}_ms"] = events_ms(
+            lambda: fused.gj_kernel(xp, pivot=True), iters=2)
+    del xw, x1, x512, xp
     strip = torch.from_numpy(
         rng.standard_normal((128, 4096)).astype(np.float32)).to(dev)
     used = torch.zeros(4096, dtype=torch.int32, device=dev)
@@ -1012,20 +1111,18 @@ def main() -> None:
     # and K6 on that strip alone (k = 1: K2's step chain in K6's build);
     # then the batch calls, lockstep against per-matrix: CUDA events around
     # the call, and the profiler's summed device time of one call.
-    for k, m in ((8, 1024), (4, 2048), (1, 4096)):
+    for k, m in ((8, 1024), (4, 2048)):
         s6 = torch.from_numpy(rng.standard_normal((k, 128, m)).astype(
             np.float32)).to(dev)
         u6 = torch.zeros((k, m), dtype=torch.int32, device=dev)
         times[f"k2_m{m}_ms"] = events_ms(
             lambda: blocked.panel_factor(s6[0], 0, u6[0], pivot=True),
             iters=10)
-        times[f"k6_k1_m{m}_ms"] = events_ms(
-            lambda: lockstep.lockstep_factor(s6[:1], 0, u6[:1], pivot=True),
-            iters=10)
-        if k == 1:
-            continue
         times[f"k6_k{k}_m{m}_ms"] = events_ms(
             lambda: lockstep.lockstep_factor(s6, 0, u6, pivot=True), iters=10)
+        times[f"k6_k{k}_m{m}_device_ms"] = device_ms(
+            lambda: lockstep.lockstep_factor(s6, 0, u6, pivot=True), 10,
+            "panel_factor_cluster")
         times[f"k6_twin_k{k}_m{m}_ms"] = events_ms(
             lambda: lockstep.lockstep_factor_twin(s6, 0, u6, pivot=True),
             iters=1)
@@ -1039,6 +1136,11 @@ def main() -> None:
                                                     iters=2)
             times[f"{key}_lockstep_device_ms"] = device_ms(
                 lambda: inverse(xs))
+        for route in ("per_matrix", "lockstep"):
+            dev_ms = times[f"{key}_{route}_device_ms"]
+            times[f"{key}_{route}_idle_share"] = (
+                None if dev_ms is None
+                else 1 - dev_ms / times[f"{key}_{route}_ms"])
     # K7 at 4096^3 beside its twin and the library GEMM: fp32 with TF32 off
     # (the twin is that same call), bf16 against bf16 torch.matmul; by
     # events and by the profiler's device time (K7's kernel alone, every
@@ -1075,7 +1177,7 @@ def main() -> None:
         shown = "not measured" if val is None else f"{val:.4f}"
         log(f"  {key}: {shown}   [{card}]")
     for label, c in clusters.items():
-        log(f"  {label}: C = {c} CTAs a panel")
+        log(f"  {label}: C = {c} CTAs a cluster")
 
     # Bounds from this run's shapes, at the operations each function needs
     # (not those of the algorithm that computes it): an n x n inverse
@@ -1101,6 +1203,11 @@ def main() -> None:
     k6_2048 = bound(4 * 2 * (2048 - 1) * 128 ** 2,
                     4 * (2 * 128 * 2048 * 4 + 2048 * 4 + 128 * 4 + 4))
     log(f"  K6 bound at k = 4, m = 2048: {k6_2048[0]:.6f} ms ({k6_2048[1]})")
+    k1_512 = bound(512 * 2 * 256 ** 3,
+                   512 * (2 * 256 * 256 * 4 + 256 * 4 + 4))
+    k1_one = bound(2 * 256 ** 3, 2 * 256 * 256 * 4 + 256 * 4 + 4)
+    log(f"  K1 bound at (512, 256^2): {k1_512[0]:.6f} ms ({k1_512[1]}); at "
+        f"(1, 256^2): {k1_one[0]:.6f} ms ({k1_one[1]})")
     k7_bf16 = bound(2 * 4096 ** 3, 3 * 4096 * 4096 * 2,
                     peak=PEAK_BF16_TENSOR_FLOPS)
     log(f"  K7 bound at 4096^3 bf16 (tensor cores): {k7_bf16[0]:.6f} ms "
@@ -1130,7 +1237,25 @@ def main() -> None:
                   times["k1_library_inv_batch4096_ms"]),
          "kernel_device_ms": times["k1_batch4096_device_ms"],
          "library_device_ms": times["k1_library_inv_batch4096_device_ms"],
-         "blocks_per_sm": k1_per_sm},
+         "blocks_per_sm": k1_per_sm,
+         # The m = 256 .. 640 branch (one cluster per matrix): the
+         # (512, 256^2) batch and one 256^2 matrix.
+         "ms_512x256": times["k1_batch512_m256_ms"],
+         "kernel_device_ms_512x256": times["k1_batch512_m256_device_ms"],
+         "plain_ms_512x256": times["k1_twin_batch512_m256_ms"],
+         "library_ms_512x256": times["k1_library_inv_batch512_m256_ms"],
+         "library_device_ms_512x256":
+             times["k1_library_inv_batch512_m256_device_ms"],
+         "bound_ms_512x256": k1_512[0], "bound_by_512x256": k1_512[1],
+         "cluster_512x256": clusters["K1 (512, 256^2)"],
+         "ms_1x256": times["k1_one_m256_ms"],
+         "kernel_device_ms_1x256": times["k1_one_m256_device_ms"],
+         "library_ms_1x256": times["k1_library_inv_one_m256_ms"],
+         "bound_ms_1x256": k1_one[0], "bound_by_1x256": k1_one[1],
+         "cluster_1x256": clusters["K1 (1, 256^2)"],
+         "matrix_inv_32_n256_ms": times["matrix_inv_32_n256_ms"],
+         "peak_mb_inverse_512x256": peak["batch512_n256"],
+         "peak_mb_inverse_64x640": peak["batch64_n640"]},
         # No PyTorch call computes a panel's pivot rows and C^T (K2) or a
         # packed-key pivot search (K3): library_ms is null for both.
         {**record("K2 panel_factor", "panel_factor.cu", "blocked.py:255",
@@ -1176,9 +1301,17 @@ def main() -> None:
          "library_device_ms": times["k5_library_lu_nopivot_b128_device_ms"]},
         # No PyTorch call factors panels of k matrices into pivot rows and
         # C^T (K6).
-        record("K6 lockstep_factor", "panel_factor.cu", "lockstep.py:84",
-               counts_ls[1024]["K6"], k6_abs, times["k6_k8_m1024_ms"],
-               times["k6_twin_k8_m1024_ms"], None),
+        {**record("K6 lockstep_factor", "panel_factor.cu", "lockstep.py:84",
+                  counts_ls[1024]["K6"], k6_abs, times["k6_k8_m1024_ms"],
+                  times["k6_twin_k8_m1024_ms"], None),
+         "kernel_device_ms": times["k6_k8_m1024_device_ms"],
+         "cluster": clusters["K6 (k=8, 1024, 128)"],
+         "launches_k4_m2048": counts_ls[2048]["K6"],
+         "ms_k4_m2048": times["k6_k4_m2048_ms"],
+         "kernel_device_ms_k4_m2048": times["k6_k4_m2048_device_ms"],
+         "plain_ms_k4_m2048": times["k6_twin_k4_m2048_ms"],
+         "bound_ms_k4_m2048": k6_2048[0], "bound_by_k4_m2048": k6_2048[1],
+         "cluster_k4_m2048": clusters["K6 (k=4, 2048, 128)"]},
         # K7's record is its fp32 branch (the verification GEMM's dtype);
         # its bf16 branch, on the tensor cores, in the *_bf16 keys.
         {**record("K7 tiled_matmul", "tiled_matmul.cu", "matmul.py:30",

@@ -36,11 +36,12 @@
 // through _panel_factor_lockstep: K2's outputs for one panel of each of k
 // matrices, in one launch. The TPU kernel merged the k matrices into one
 // (k, 2*sub, m) working set, since one TensorCore runs one program at a
-// time; here the one-block panel body (K2's first design) runs with a grid
-// of k blocks, one per matrix, so the k serial step chains advance on k SMs
-// at once. The contract is the
-// reference's (tests/test_lockstep.py): each matrix's outputs equal, bit for
-// bit, those of K2 run on that matrix alone.
+// time; here the launch is k clusters of K2's body, cluster i on matrix i
+// (a grid of k * C CTAs), so the k serial step chains advance on k * C
+// SMs at once; K2 is its k = 1 case. A k past the clusters the card holds
+// at once runs in waves. The contract is the reference's
+// (tests/test_lockstep.py): each matrix's outputs equal, bit for bit, those
+// of K2 run on that matrix alone, which holds by construction.
 //
 // What bounds them on an H100. A panel's working set does not fit one SM
 // (2*sub*m values: 512 KiB at m = 4096 in fp32, 2 MiB at m = 65536 in
@@ -80,20 +81,24 @@
 // bound it now. The bits do not move: a max of packed keys is exact in any
 // order, and each element's update chain stays in one thread, in the same
 // order, with the same intrinsics, so K2's and K3's outputs are
-// byte-identical to the one-block kernels' whatever C is.
-//
-// K6 keeps the one-block body (panel_factor_kernel<true>), a grid of k
-// blocks; it is the body's only user.
+// byte-identical to the one-block kernels' whatever C is (and equal, bit
+// for bit, to the plain twins run on the CPU).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cluster_sync.cuh"
 #include "common.cuh"
 
 namespace {
 
+using matinv::bar_expect;
+using matinv::bar_wait;
+using matinv::peer_addr;
+using matinv::smem_addr;
+using matinv::store_to_peer;
+
 constexpr int kMaxSub = 16;
-constexpr int kThreads = 1024;
 constexpr size_t kMaxShared = 232448;  // one block's dynamic shared memory
 
 // Arithmetic on a working-set element type. fp32: x - n*f is one fmaf, as
@@ -133,162 +138,6 @@ __host__ __device__ inline size_t round16(size_t x) {
   return (x + 15) / 16 * 16;
 }
 
-// Shared memory of the one-block body (K6): the search column (m values of
-// T), the gathered pivot-lane
-// values g ((b - sub) * sub floats), the normalized pivot column (2*sub
-// floats), the sub-panel's pivot lanes (kMaxSub ints), the reduction
-// scratch (40 ints) and the used-row flags (m bytes).
-size_t smem_bytes(int m, int b, int sub, size_t elt) {
-  return round16((size_t)m * elt) +
-         ((size_t)(b - sub) * sub + 2 * sub) * sizeof(float) +
-         (kMaxSub + 40) * sizeof(int) + (size_t)m;
-}
-
-// The one-block body, K2's first design: fp32, pivoting or not (pivot == 0
-// takes rows kb + r); emits C^T and ok, with the same bits as the cluster
-// body below. kLockstep (K6, its only user) runs it on k matrices at once,
-// block i on matrix i's strip, mask, outputs and workspace.
-template <bool kLockstep>
-__global__ void __launch_bounds__(kThreads)
-panel_factor_kernel(const float* __restrict__ stripT,
-                    const int* __restrict__ used_in, int* __restrict__ pivrows,
-                    float* __restrict__ ct, int* __restrict__ ok_out,
-                    float* __restrict__ wp, int m, int b, int sub, int kmask,
-                    int kb, int pivot) {
-  if constexpr (kLockstep) {
-    const size_t item = blockIdx.x;
-    stripT += item * b * m;
-    used_in += item * m;
-    pivrows += item * b;
-    ct += item * b * m;
-    ok_out += item;
-    wp += item * 2 * sub * m;
-  }
-  extern __shared__ float4 smem4[];
-  float* col = reinterpret_cast<float*>(smem4);   // (m,)
-  float* g = col + m;                             // (b - sub, sub)
-  float* norm = g + (size_t)(b - sub) * sub;      // (2*sub,)
-  int* lanes = reinterpret_cast<int*>(norm + 2 * sub);  // (kMaxSub,)
-  int* red = lanes + kMaxSub;                     // 40
-  unsigned char* used = reinterpret_cast<unsigned char*>(red + 40);  // (m,)
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int s2 = 2 * sub;
-
-  // The strip enters the C^T buffer, which is the working buffer for the
-  // rows not yet eliminated.
-  for (size_t idx = tid; idx < (size_t)b * m; idx += nt) ct[idx] = stripT[idx];
-  for (int j = tid; j < m; j += nt) used[j] = used_in[j] != 0;
-  int ok = 1;  // tracked by thread 0
-  __syncthreads();
-
-  for (int r0 = 0; r0 < b; r0 += sub) {
-    // Merged working set: rows [0, sub) the sub-panel's strip rows, rows
-    // [sub, 2*sub) its transform probe, zero at the start. The first step's
-    // search column is strip row r0.
-    int best = -1;
-    for (int j = tid; j < m; j += nt) {
-      for (int k = 0; k < sub; ++k)
-        wp[(size_t)k * m + j] = ct[(size_t)(r0 + k) * m + j];
-      for (int k = sub; k < s2; ++k) wp[(size_t)k * m + j] = 0.f;
-      const float c = ct[(size_t)r0 * m + j];
-      col[j] = c;
-      if (pivot) best = max(best, matinv::pivot_key(c, used[j], j, kmask));
-    }
-
-    for (int r2 = 0; r2 < sub; ++r2) {
-      int p = kb + r0 + r2;
-      if (pivot)
-        p = kmask - (matinv::block_max_int(best, red) & kmask);
-      else
-        __syncthreads();
-
-      // Pivot column of the working set, with the probe's identity one-hot
-      // injected at (sub + r2, p) one step before its own elimination, then
-      // normalized by the pivot (strip row r2 at lane p).
-      if (tid < s2) {
-        float v = wp[(size_t)tid * m + p];
-        if (tid == sub + r2) v = __fadd_rn(v, 1.f);
-        const float pv = wp[(size_t)r2 * m + p];
-        norm[tid] = __fdiv_rn(v, pv == 0.f ? 1.f : pv);
-        if (tid == 0) {
-          ok &= (pv != 0.f);
-          pivrows[r0 + r2] = p;
-          lanes[r2] = p;
-          used[p] = 1;
-        }
-      }
-      __syncthreads();
-
-      // Rank-1 eliminate every lane but p, deposit the normalized column in
-      // lane p, and take the next step's search column (working row r2 + 1)
-      // and its keys in the same pass.
-      best = -1;
-      for (int j = tid; j < m; j += nt) {
-        const bool is_p = j == p;
-        const float f = col[j];
-        float next = 0.f;
-        for (int k = 0; k < s2; ++k) {
-          float* x = wp + (size_t)k * m + j;
-          const float v = is_p ? norm[k] : fmaf(-norm[k], f, *x);
-          *x = v;
-          if (k == r2 + 1) next = v;
-        }
-        col[j] = next;
-        if (pivot)
-          best = max(best, matinv::pivot_key(next, is_p || used[j], j, kmask));
-      }
-      __syncthreads();
-    }
-
-    // Deferred rank-sub update of every C^T-buffer row outside this
-    // sub-panel: finished transform rows [0, r0) and later strip rows
-    // [r0 + sub, b). First dot: g = rows @ psel^T, the rows' values at the
-    // sub-panel's pivot lanes.
-    const int nrows = b - sub;
-    for (int idx = tid; idx < nrows * sub; idx += nt) {
-      const int q = idx / sub;
-      const int k = idx - q * sub;
-      const int i = q < r0 ? q : q + sub;
-      g[idx] = ct[(size_t)i * m + lanes[k]];
-    }
-    __syncthreads();
-    // Second dot: rows += g @ C_l^T with C_l^T = probe - psel; then the
-    // sub-panel's own C^T rows land in the rows it just finished.
-    for (int j = tid; j < m; j += nt) {
-      float ctl[kMaxSub];
-#pragma unroll
-      for (int k = 0; k < kMaxSub; ++k) {
-        if (k < sub) {
-          float v = wp[(size_t)(sub + k) * m + j];
-          if (j == lanes[k]) v = __fsub_rn(v, 1.f);
-          ctl[k] = v;
-        }
-      }
-      for (int q = 0; q < nrows; ++q) {
-        const int i = q < r0 ? q : q + sub;
-        const float* gq = g + (size_t)q * sub;
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < kMaxSub; ++k)
-          if (k < sub) acc = fmaf(gq[k], ctl[k], acc);
-        float* x = ct + (size_t)i * m + j;
-        *x = __fadd_rn(*x, acc);
-      }
-#pragma unroll
-      for (int k = 0; k < kMaxSub; ++k)
-        if (k < sub) ct[(size_t)(r0 + k) * m + j] = ctl[k];
-    }
-    __syncthreads();
-  }
-
-  int finite = 1;
-  for (size_t idx = tid; idx < (size_t)b * m; idx += nt)
-    finite &= isfinite(ct[idx]) ? 1 : 0;
-  finite = __syncthreads_and(finite);
-  if (tid == 0) ok_out[0] = ok && finite;
-}
-
 // ---------------------------------------------------------------------------
 // K2 and K3: one thread-block cluster per panel.
 // ---------------------------------------------------------------------------
@@ -309,66 +158,6 @@ struct alignas(16) Slot {
 };
 constexpr int kSlotChunks = sizeof(Slot) / 16;
 constexpr int kMaxWarps = kClusterThreads / 32;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The address of the same shared-memory location in CTA `rank` of the
-// cluster (shared::cluster space).
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// The local arrival of the barrier's next phase, which then waits for
-// `bytes` of stores from the cluster.
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed. A
-// wait never lasts longer than one step of the slowest CTA; past ~2^26
-// tries (seconds) the cluster is deadlocked, and the kernel traps, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// 16 bytes into another CTA's shared memory; completes on its barrier.
-__device__ __forceinline__ void store_to_peer(uint32_t addr, uint32_t bar,
-                                              float4 v) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
-      "[%0], {%1, %2, %3, %4}, [%5];" ::"r"(addr),
-      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
-      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
-      : "memory");
-}
 
 // Row stride of the gathered pivot-lane values g, in floats: sub padded to
 // a whole float4.
@@ -412,7 +201,9 @@ __device__ __forceinline__ int cta_max(int v, int* red) {
 // rows). kWpShared / kRowsShared: the CTA's slice of wp / of the strip rows
 // lives in its shared memory; else in wp_g / rows_g at column r*L, row
 // stride m. rows_g is K2's C^T output (written at the end when the rows
-// live in shared memory) and K3's workspace.
+// live in shared memory) and K3's workspace. A grid of k clusters (K6)
+// runs k panels, cluster i on item i of each argument: the strip, mask,
+// pivot rows, C^T, ok and workspace of matrix i.
 template <typename T, bool kEmitCt, bool kWpShared, bool kRowsShared>
 __device__ __forceinline__ void cluster_body(
     const T* __restrict__ stripT, const int* __restrict__ used_in,
@@ -423,6 +214,15 @@ __device__ __forceinline__ void cluster_body(
   cg::cluster_group cluster = cg::this_cluster();
   const int nc = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  const size_t item = blockIdx.x / nc;
+  if (item != 0) {
+    stripT += item * b * m;
+    used_in += item * m;
+    pivrows += item * b;
+    rows_g += item * b * m;
+    ok_out += item;
+    if constexpr (!kWpShared) wp_g += item * 2 * sub * m;
+  }
   const int L = (m + nc - 1) / nc;
   const int base = rank * L;
   const int len = min(L, m - base);
@@ -480,13 +280,7 @@ __device__ __forceinline__ void cluster_body(
   // for step t + 2, whose stores no peer can send before this CTA has
   // published step t + 1, after every thread here read step t's slots.
   const uint32_t slot_bytes = nc * sizeof(Slot);
-  if (tid == 0) {
-    bar_init(&bars[0]);
-    bar_init(&bars[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    bar_expect(&bars[0], slot_bytes);
-    bar_expect(&bars[1], slot_bytes);
-  }
+  if (tid == 0) matinv::bars_start(bars, slot_bytes);
   cluster.sync();  // every peer's barriers exist before the first store
   int t = 0;       // the step being published next
 
@@ -777,13 +571,15 @@ const void* cluster_kernel_of(int kind, int wp_shared, int rows_shared) {
 // Checks the geometry the wrapper chose (sub divides b and is at most
 // kMaxSub; 1 to kMaxCluster CTAs, none without lanes; a warp multiple of
 // threads; smem at least the placement's count and at most one block's),
-// sets the kernel's attributes and fills the cluster launch.
-cudaError_t cluster_launch_config(const void* kernel, int m, int b, int sub,
-                                  size_t elt, int cluster, int threads,
-                                  int wp_shared, int rows_shared, int smem,
-                                  void* stream, cudaLaunchConfig_t* cfg,
+// sets the kernel's attributes and fills the launch of `items` clusters.
+cudaError_t cluster_launch_config(const void* kernel, int items, int m,
+                                  int b, int sub, size_t elt, int cluster,
+                                  int threads, int wp_shared, int rows_shared,
+                                  int smem, void* stream,
+                                  cudaLaunchConfig_t* cfg,
                                   cudaLaunchAttribute* attr) {
-  if (kernel == nullptr || m < 1 || sub < 1 || sub > kMaxSub || b < sub ||
+  if (kernel == nullptr || items < 1 || m < 1 || sub < 1 || sub > kMaxSub ||
+      b < sub ||
       b % sub != 0 || cluster < 1 || cluster > kMaxCluster || threads < 32 ||
       threads > kClusterThreads || threads % 32 != 0)
     return cudaErrorInvalidValue;
@@ -800,7 +596,7 @@ cudaError_t cluster_launch_config(const void* kernel, int m, int b, int sub,
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(cluster, 1, 1);
+  cfg->gridDim = dim3(cluster * items, 1, 1);
   cfg->blockDim = dim3(threads, 1, 1);
   cfg->dynamicSmemBytes = (size_t)smem;
   cfg->stream = static_cast<cudaStream_t>(stream);
@@ -813,7 +609,7 @@ cudaError_t cluster_launch_config(const void* kernel, int m, int b, int sub,
   return cudaSuccess;
 }
 
-int launch_cluster(int kind, const void* stripT, const int* used,
+int launch_cluster(int kind, int items, const void* stripT, const int* used,
                    int* pivrows, void* rows, int* ok, void* wp, int m, int b,
                    int sub, int kmask, int kb, int pivot, int cluster,
                    int threads, int wp_shared, int rows_shared, int smem,
@@ -822,26 +618,14 @@ int launch_cluster(int kind, const void* stripT, const int* used,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = cluster_launch_config(
-      kernel, m, b, sub, kind == 2 ? 2 : 4, cluster, threads, wp_shared,
-      rows_shared, smem, stream, &cfg, &attr);
+      kernel, items, m, b, sub, kind == 2 ? 2 : 4, cluster, threads,
+      wp_shared, rows_shared, smem, stream, &cfg, &attr);
   if (err != cudaSuccess) return err;
   void* args[] = {&stripT, &used,  &pivrows, &rows, &ok,   &wp,
                   &m,      &b,     &sub,     &kmask, &kb,  &pivot};
   err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
-}
-
-// Checks the geometry (sub divides b and is at most kMaxSub) and one
-// block's shared memory, and sets the kernel's; returns the bytes in smem.
-cudaError_t configure(const void* kernel, int m, int b, int sub, size_t elt,
-                      size_t* smem) {
-  if (m < 1 || sub < 1 || sub > kMaxSub || b < sub || b % sub != 0)
-    return cudaErrorInvalidValue;
-  *smem = smem_bytes(m, b, sub, elt);
-  if (*smem > kMaxShared) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
 }  // namespace
@@ -858,7 +642,7 @@ extern "C" int matinv_panel_clusters(int kind, int m, int b, int sub,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = cluster_launch_config(
-      kernel, m, b, sub, kind == 2 ? 2 : 4, cluster, threads, wp_shared,
+      kernel, 1, m, b, sub, kind == 2 ? 2 : 4, cluster, threads, wp_shared,
       rows_shared, smem, nullptr, &cfg, &attr);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
@@ -879,31 +663,27 @@ extern "C" int matinv_panel_factor(const float* stripT, const int* used,
                                    int kmask, int kb, int pivot, int cluster,
                                    int threads, int wp_shared,
                                    int rows_shared, int smem, void* stream) {
-  return launch_cluster(0, stripT, used, pivrows, ct, ok, wp, m, b, sub,
+  return launch_cluster(0, 1, stripT, used, pivrows, ct, ok, wp, m, b, sub,
                         kmask, kb, pivot, cluster, threads, wp_shared,
                         rows_shared, smem, stream);
 }
 
-// K6. The one-block body on k matrices, one block each: stripT (k, b, m)
-// float32, matrix i's transposed strip at [i]; used (k, m) int32; pivrows
-// (k, b) int32 out; ct (k, b, m) float32 out; ok (k,) int32 out; wp
-// (k, 2*sub, m) float32 workspace. sub, kmask and kb as for K2 (kb is the
-// same for every matrix). Returns the cudaError_t of the launch.
+// K6. K2's cluster body on k matrices, one cluster each, in one launch:
+// stripT (k, b, m) float32, matrix i's transposed strip at [i]; used (k, m)
+// int32; pivrows (k, b) int32 out; ct (k, b, m) float32 out; ok (k,) int32
+// out; wp (k, 2*sub, m) float32 workspace, read only when wp_shared is 0.
+// sub, kmask, kb (the same for every matrix) and the cluster geometry as
+// for K2. Returns the cudaError_t of the launch.
 extern "C" int matinv_lockstep_factor(const float* stripT, const int* used,
                                       int* pivrows, float* ct, int* ok,
                                       float* wp, int k, int m, int b, int sub,
                                       int kmask, int kb, int pivot,
+                                      int cluster, int threads, int wp_shared,
+                                      int rows_shared, int smem,
                                       void* stream) {
-  if (k < 1) return cudaErrorInvalidValue;
-  size_t smem;
-  cudaError_t err =
-      configure(reinterpret_cast<const void*>(&panel_factor_kernel<true>), m,
-                b, sub, sizeof(float), &smem);
-  if (err != cudaSuccess) return err;
-  panel_factor_kernel<true><<<k, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      stripT, used, pivrows, ct, ok, wp, m, b, sub, kmask, kb, pivot);
-  return cudaGetLastError();
+  return launch_cluster(0, k, stripT, used, pivrows, ct, ok, wp, m, b, sub,
+                        kmask, kb, pivot, cluster, threads, wp_shared,
+                        rows_shared, smem, stream);
 }
 
 // K3. stripT: (b, m) float32, or bfloat16 when bf16 != 0; used, pivrows,
@@ -915,7 +695,7 @@ extern "C" int matinv_pivot_search(const void* stripT, const int* used,
                                    int b, int sub, int kmask, int bf16,
                                    int cluster, int threads, int wp_shared,
                                    int rows_shared, int smem, void* stream) {
-  return launch_cluster(bf16 ? 2 : 1, stripT, used, pivrows, w, nullptr, wp,
-                        m, b, sub, kmask, 0, 1, cluster, threads, wp_shared,
-                        rows_shared, smem, stream);
+  return launch_cluster(bf16 ? 2 : 1, 1, stripT, used, pivrows, w, nullptr,
+                        wp, m, b, sub, kmask, 0, 1, cluster, threads,
+                        wp_shared, rows_shared, smem, stream);
 }

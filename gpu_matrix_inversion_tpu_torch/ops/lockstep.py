@@ -9,12 +9,13 @@ SM of the card.
 
 Here k matrices advance through the blocked driver together, panel by
 panel, and each panel of all k is factored by ONE launch of kernel K6
-(K2's kernel in ``csrc/panel_factor.cu`` with a grid of k blocks), one
-thread block per matrix, so the k serial step chains run on k SMs at
-once. The reference refuted the route on a
-TPU v5e, where one TensorCore ran the k matrices' merged step at about k
+(``csrc/panel_factor.cu``): k thread-block clusters of K2's design, one
+cluster of C CTAs per matrix (C from ``ops/blocked.cluster_plan``, as K2
+takes it for one panel), so the k serial step chains run on k * C SMs at
+once; a k past the clusters the card holds at once runs in waves. The reference refuted the route on a TPU
+v5e, where one TensorCore ran the k matrices' merged step at about k
 times the cost of one; that premise does not carry over to a GPU, where
-each matrix has an SM of its own.
+each matrix has SMs of its own.
 
 Contract (the reference's, ``tests/test_lockstep.py``): the lockstep route
 equals the per-matrix route bit for bit, refine included. Everything but
@@ -37,8 +38,8 @@ import torch
 from gpu_matrix_inversion_tpu_torch.ops.blocked import (
     _apply_group, _apply_panel, _augment, _check_panel_inputs,
     _factor_geometry, _group_sizes, _group_start,
-    _select_block_params, _unpermute, panel_factor_twin)
-from gpu_matrix_inversion_tpu_torch.ops.fused import SHARED_BYTES, _round_up
+    _select_block_params, _unpermute, cluster_plan, panel_factor_twin)
+from gpu_matrix_inversion_tpu_torch.ops.fused import _round_up
 from gpu_matrix_inversion_tpu_torch.ops.refine import newton_schulz_refine
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
@@ -71,15 +72,6 @@ def _lockstep_k(nbatch: int, n: int, block_size: int, dtype,
     return k if k >= 2 else 0
 
 
-def _block_smem_bytes(m: int, b: int, sub: int) -> int:
-    """Shared memory of K6's one-block body (``smem_bytes`` in
-    ``csrc/panel_factor.cu``): the fp32 search column, the gathered
-    pivot-lane values, the normalized column, lanes, reduction scratch,
-    used flags."""
-    return (_round_up(m * 4, 16) + ((b - sub) * sub + 2 * sub) * 4
-            + (16 + 40) * 4 + m)
-
-
 def lockstep_factor_twin(stripsT: torch.Tensor, kb: int, used: torch.Tensor,
                          *, pivot: bool):
     """Plain twin of K6: K2's twin applied to each matrix. Returns
@@ -97,7 +89,8 @@ def lockstep_factor(stripsT: torch.Tensor, kb: int, used: torch.Tensor, *,
     strips, ``kb`` the panel's first column, ``used`` the (k, m) int32
     cross-panel masks, read only. Returns what K2 returns for each matrix,
     stacked: ``(pivrows (k, b), ct (k, b, m), ok (k,))``. A CUDA tensor
-    launches the kernel; a CPU tensor takes :func:`lockstep_factor_twin`.
+    launches the kernel, k clusters of K2's geometry (``cluster_plan``); a
+    CPU tensor takes :func:`lockstep_factor_twin`.
     """
     if stripsT.ndim != 3 or used.ndim != 2 or used.shape[0] != len(stripsT):
         raise TypeError(f"K6 takes (k, b, m) strips and (k, m) masks, got "
@@ -110,21 +103,29 @@ def lockstep_factor(stripsT: torch.Tensor, kb: int, used: torch.Tensor, *,
         raise ValueError(f"kb={kb} outside [0, {m - b}]")
     if stripsT.device.type == "cpu":
         return lockstep_factor_twin(stripsT, kb, used, pivot=pivot)
+    return _launch(stripsT, kb, used, pivot)
+
+
+def _launch(stripsT: torch.Tensor, kb: int, used: torch.Tensor,
+            pivot: bool):
+    """K6's launch on checked inputs: K2's cluster geometry for one
+    (m, b) panel, k clusters of it."""
+    k, b, m = stripsT.shape
     sub, kmask = _factor_geometry(m, b)
-    smem = _block_smem_bytes(m, b, sub)
-    if smem > SHARED_BYTES:
-        raise ValueError(f"K6 at m={m}, b={b} needs {smem} bytes of shared "
-                         f"memory, more than one block's {SHARED_BYTES}")
+    geo, _ = cluster_plan(0, m, b, sub)
     lib = cuda_build.load()
     dev = stripsT.device
     pivrows = torch.empty((k, b), dtype=torch.int32, device=dev)
     ct = torch.empty((k, b, m), dtype=torch.float32, device=dev)
     ok = torch.empty(k, dtype=torch.int32, device=dev)
-    wp = torch.empty((k, 2 * sub, m), dtype=torch.float32, device=dev)
+    wp = (None if geo.wp_shared else
+          torch.empty((k, 2 * sub, m), dtype=torch.float32, device=dev))
     err = lib.matinv_lockstep_factor(
         stripsT.data_ptr(), used.data_ptr(), pivrows.data_ptr(),
-        ct.data_ptr(), ok.data_ptr(), wp.data_ptr(), k, m, b, sub, kmask, kb,
-        int(pivot), torch.cuda.current_stream(dev).cuda_stream)
+        ct.data_ptr(), ok.data_ptr(), None if wp is None else wp.data_ptr(),
+        k, m, b, sub, kmask, kb, int(pivot), geo.cluster, geo.threads,
+        int(geo.wp_shared), int(geo.rows_shared), geo.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K6 lockstep_factor")
     lockstep_factor.launches += 1
     return pivrows, ct, ok != 0
@@ -196,7 +197,7 @@ def lockstep_inverse(a: torch.Tensor, *, pivot: bool, b: int, k: int,
     (lockstep.py:355-387); returns ``(inv (B, n, n), ok (B,))``.
 
     The last chunk, when k does not divide B, launches K6 on the matrices
-    left (a smaller grid) instead of padding with identities. ``refine``
+    left (fewer clusters) instead of padding with identities. ``refine``
     Newton-Schulz steps polish each matrix as the per-matrix route does.
     """
     if a.ndim != 3 or a.dtype != torch.float32:

@@ -29,10 +29,12 @@ _I = ctypes.c_int
 # Entry points of csrc/*.cu: name -> argtypes (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits).
 SIGNATURES = {
-    # a, inv, pos, ok, work, batch, m, pivot, bf16, stream
-    "matinv_fused_gj": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # a, inv, pos, ok, batch, m, pivot, bf16, cluster, smem, stream
+    "matinv_fused_gj": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # blocks (int *)
     "matinv_fused_gj_occupancy": (_P,),
+    # m, cluster, smem, clusters (int *)
+    "matinv_fused_clusters": (_I, _I, _I, _P),
     # stripT, used, pivrows, ct, ok, wp, m, b, sub, kmask, kb, pivot,
     # cluster, threads, wp_shared, rows_shared, smem, stream
     "matinv_panel_factor": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -49,9 +51,9 @@ SIGNATURES = {
     # a, out, ok, batch, b, stream
     "matinv_small_lu": (_P, _P, _P, _I, _I, _P),
     # stripT, used, pivrows, ct, ok, wp, k, m, b, sub, kmask, kb, pivot,
-    # stream
+    # cluster, threads, wp_shared, rows_shared, smem, stream
     "matinv_lockstep_factor": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _P),
+                               _I, _I, _I, _I, _I, _I, _I, _P),
     # a, b, c, m, n, k, lda, ldb, bf16, stream
     "matinv_tiled_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }

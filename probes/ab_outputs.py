@@ -15,15 +15,18 @@ one card. It prints and writes to ``--out`` a JSON record:
   rows or ``pos``, then ok flags), the sha256 of its bytes, the sha256 of
   its values with every -0 made +0, and the flat indices of its -0
   elements. The outputs: K1 on (4096, 128, 128) uniform [0, 100), on
-  (64, 128, 128) bf16, on (512, 256, 256) (the global-workspace branch),
-  and its pivot rows and ok flags on a (3, 128, 128) batch with an
-  all-ones and a NaN member; K2 on a (128, 4096) strip; K3 on a
+  (64, 128, 128) bf16, on (512, 256, 256), (1, 256, 256) and
+  (4, 640, 640) (the m = 256 .. 640 branch), on (2, 384, 384) integers in
+  [-3, 3] with and without pivoting (plus 384 I for the latter), on
+  (2, 512, 512) bf16, and its pivot rows and ok flags on a
+  (3, 128, 128) batch with an all-ones and a NaN member; K2 on a (128, 4096) strip; K3 on a
   (64, 20032) bf16 strip and on K2's (128, 4096) fp32 one; K4 on 257
   blocks at b = 64 and 128 (standard
   normal; the last block singular, of which only its ok flag counts) and
   the ok flag of a block with a NaN; K5 on 257-block batches at b = 128, 64, 40 and 8
   (standard normal plus b I, the last block with a zero pivot at step 7,
-  as ``chip_smoke.py`` phase 4c makes them); K6 on (8, 128, 1024); K7 in
+  as ``chip_smoke.py`` phase 4c makes them); K6 on (8, 128, 1024) and
+  (4, 128, 2048); K7 in
   fp32 and bf16 at 4096^3 and 300 x 200 x 150; ``inverse(method="lu")``
   and ``inverse(search_bf16=True)`` on the 4096^2 hollow matrix of seed
   1; and ``inverse`` on the 20000^2 hollow matrix of seed 20000 (the
@@ -31,7 +34,8 @@ one card. It prints and writes to ``--out`` a JSON record:
 - ``ms``: each kernel at its main path's shape (``chip_smoke.py`` phase
   7's) by CUDA events, mean of many calls after a warm-up, and its own
   kernel's device time per call from ``torch.profiler`` (``*_device``;
-  null if the profiler saw none); ``torch.linalg.inv`` beside K1 and K4;
+  null if the profiler saw none); ``torch.linalg.inv`` beside K1 (at
+  (4096, 128^2) and (512, 256^2)) and K4;
   the summed device time of one call of the blocked 4096^2 inverse, raw
   and refined, of LU getri and of Newton-Schulz at 4096^2.
 
@@ -126,6 +130,11 @@ def measure() -> dict:
     x1_bad[1] = 1.0
     x1_bad[2, 3, 4] = float("nan")
     x1_work = randn(512, 256, 256)
+    x1_one = randn(1, 256, 256)
+    x1_640 = randn(4, 640, 640)
+    x1_ints = torch.from_numpy(rng.integers(-3, 4, (2, 384, 384)).astype(
+        np.float32)).to(dev)
+    x1_512_bf16 = randn(2, 512, 512, dtype=torch.bfloat16)
     s2, u2 = randn(128, 4096), torch.zeros(4096, dtype=torch.int32,
                                            device=dev)
     s3 = randn(64, 20032, dtype=torch.bfloat16)
@@ -140,6 +149,8 @@ def measure() -> dict:
     x5_b128 = randn(128, 128) + 128 * torch.eye(128, device=dev)
     s6 = randn(8, 128, 1024)
     u6 = torch.zeros((8, 1024), dtype=torch.int32, device=dev)
+    s6b = randn(4, 128, 2048)
+    u6b = torch.zeros((4, 2048), dtype=torch.int32, device=dev)
     big = [randn(4096, 4096) for _ in range(2)]
     small = [randn(300, 200), randn(200, 150)]
     x4k = torch.from_numpy(hollow_random_matrix(4096, seed=1)).to(dev)
@@ -157,6 +168,12 @@ def measure() -> dict:
         "k1_64x128_bf16": fused.gj_kernel(x1_bf16, pivot=True),
         "k1_ones_nan": fused.gj_kernel(x1_bad, pivot=True)[1:],
         "k1_512x256": fused.gj_kernel(x1_work, pivot=True),
+        "k1_1x256": fused.gj_kernel(x1_one, pivot=True),
+        "k1_4x640": fused.gj_kernel(x1_640, pivot=True),
+        "k1_2x384_ints": fused.gj_kernel(x1_ints, pivot=True),
+        "k1_2x384_ints_nopivot": fused.gj_kernel(
+            x1_ints + 384 * torch.eye(384, device=dev), pivot=False),
+        "k1_2x512_bf16": fused.gj_kernel(x1_512_bf16, pivot=True),
         "k2_128x4096": blocked.panel_factor(s2, 0, u2, pivot=True),
         "k3_64x20032_bf16": blocked.pivot_search(s3, u3),
         "k3_128x4096": blocked.pivot_search(s2, u2),
@@ -164,6 +181,7 @@ def measure() -> dict:
         "k4_nan": blocked.invert_small(x4_nan, pivot=True)[1],
         **{f"k5_257x{b}": lu.small_lu(x) for b, x in x5.items()},
         "k6_8x128x1024": lockstep.lockstep_factor(s6, 0, u6, pivot=True),
+        "k6_4x128x2048": lockstep.lockstep_factor(s6b, 0, u6b, pivot=True),
         **{f"k7_{label}_{str(dtype)[6:]}": matmul.tiled_matmul(
             *(g.to(dtype) for g in pair))
            for label, pair in (("4096", big), ("300x200x150", small))
@@ -183,6 +201,12 @@ def measure() -> dict:
          None),
         ("k1_512x256", lambda: fused.gj_kernel(x1_work, pivot=True), 3,
          "fused_gj"),
+        ("k1_library_inv_512x256", lambda: torch.linalg.inv(x1_work), 3,
+         None),
+        ("k1_1x256", lambda: fused.gj_kernel(x1_one, pivot=True), 10,
+         "fused_gj"),
+        ("k1_4x640", lambda: fused.gj_kernel(x1_640, pivot=True), 3,
+         "fused_gj"),
         ("k2_128x4096", lambda: blocked.panel_factor(s2, 0, u2, pivot=True),
          10, "panel_factor"),
         ("k3_64x20032_bf16", lambda: blocked.pivot_search(s3, u3), 5,
@@ -199,6 +223,9 @@ def measure() -> dict:
         ("k5_b128", lambda: lu.small_lu(x5_b128), 200, "small_lu"),
         ("k6_8x128x1024",
          lambda: lockstep.lockstep_factor(s6, 0, u6, pivot=True), 10,
+         "panel_factor"),
+        ("k6_4x128x2048",
+         lambda: lockstep.lockstep_factor(s6b, 0, u6b, pivot=True), 10,
          "panel_factor"),
         ("k7_4096_float32", lambda: matmul.tiled_matmul(*big), 20,
          "matmul_"),

@@ -11,8 +11,9 @@ need not have.)
 
 Tolerances as in ``chip_smoke.py``: pivot sequences identical, ok equal,
 values within 1e-4 of max|twin|; K1, K4 and K5 also elementwise against
-the twin (``_hold_to_twin``); K6 bit for bit against K2 and its twin on
-the CPU; K7 as its test states.
+the twin (``_hold_to_twin``), K1's cluster branch byte-identical across
+cluster sizes; K2 bit for bit against its twin on the CPU, K6 against K2
+per matrix and that twin; K7 as its test states.
 """
 
 import numpy as np
@@ -78,8 +79,12 @@ def _block_values(rng, shape, kind: str) -> np.ndarray:
     (8, 128, True, torch.float32, "quarters"),
     (8, 128, False, torch.float32, "quarters"),
     (8, 128, True, torch.bfloat16, "quarters"),
-    (2, 256, True, torch.float32, "normal"),     # global-workspace branch
+    (2, 256, True, torch.float32, "normal"),     # cluster branch
     (1, 640, True, torch.float32, "normal"),
+    (2, 256, True, torch.float32, "integers"),
+    (1, 640, True, torch.float32, "integers"),
+    (2, 384, False, torch.float32, "normal"),
+    (2, 512, True, torch.bfloat16, "quarters"),
 ])
 def test_k1_matches_twin(cuda, bsz, m, pivot, dtype, kind):
     """K1 against its twin on the card (pos identical, ok equal, 1e-4) and
@@ -100,6 +105,25 @@ def test_k1_matches_twin(cuda, bsz, m, pivot, dtype, kind):
     inv_c, pos_c, ok_c = fused.gj_twin(x.cpu(), pivot=pivot)
     assert torch.equal(pos_k.cpu(), pos_c) and torch.equal(ok_k.cpu(), ok_c)
     _hold_to_twin(inv_k, inv_c)
+
+
+@pytest.mark.parametrize("m,bsz", [(256, 1), (256, 4), (384, 1)])
+def test_k1_cluster_size_changes_no_bit(cuda, monkeypatch, m, bsz):
+    """K1's cluster branch at the smallest C that fits (2 at m = 256, 4 at
+    384) and at the 8 the geometry grows to for a batch that leaves SMs
+    idle: inverse, pos and ok byte-identical."""
+    rng = np.random.default_rng(m + bsz)
+    x = torch.from_numpy(_block_values(rng, (bsz, m, m), "quarters")).to(cuda)
+    c_min = 2 if m == 256 else 4
+    out = {}
+    for cmax in (c_min, 8):
+        monkeypatch.setattr(fused, "MAX_CLUSTER", cmax)
+        geo, _ = fused.cluster_plan(m, bsz)
+        assert geo.cluster == cmax
+        out[cmax] = fused.gj_kernel(x, pivot=True)
+    (i1, p1, o1), (i2, p2, o2) = out.values()
+    assert torch.equal(i1.view(torch.int32), i2.view(torch.int32))
+    assert torch.equal(p1, p2) and torch.equal(o1, o2) and bool(o1.all())
 
 
 @pytest.mark.parametrize("per_sm", [1, 2, 3])
@@ -156,13 +180,13 @@ def test_k3_matches_twin(cuda, m, b, dtype):
     assert not bool(used[p_k.long()].any())
 
 
-def _k6_at_k1(strip, kb, used, pivot):
-    """K6 on one matrix: the one-block body, K2's bits before the cluster
-    design."""
-    from gpu_matrix_inversion_tpu_torch.ops import lockstep
-    p, ct, ok = lockstep.lockstep_factor(strip[None].contiguous(), kb,
-                                         used[None].contiguous(), pivot=pivot)
-    return p[0], ct[0], bool(ok[0])
+def _twin_on_cpu(strip, kb, used, pivot):
+    """K2's twin run on the CPU, the bit reference of K2, K3 and K6 (its
+    deferred dot sums in the kernels' order there; on the card the twin's
+    is a cuBLAS product, which does not)."""
+    p, ct, ok = blocked.panel_factor_twin(strip.cpu(), kb, used.cpu(),
+                                          pivot=pivot)
+    return p, ct, bool(ok)
 
 
 def _bits(x):
@@ -192,9 +216,9 @@ K2_GATE_SHAPES = [(256, 64), (1024, 128), (2048, 128), (4096, 128),
 @pytest.mark.parametrize("m,b", K2_GATE_SHAPES)
 def test_k2_cluster_bits(cuda, monkeypatch, m, b, pivot, mask):
     """K2, one cluster per panel, at every shape the gates give it: pivot
-    rows, C^T and ok byte-identical to K6 at k = 1 (the one-block body)
-    and the pivot rows to the twin on the CPU; at C = 8 byte-identical to
-    C = 16. Without pivoting the strip is made dominant at rows kb..kb+b."""
+    rows, C^T and ok byte-identical to the twin run on the CPU; at C = 8
+    byte-identical to C = 16. Without pivoting the strip is made dominant
+    at rows kb..kb+b."""
     strip, used = _strip_and_mask(cuda, m, b, mask, m + b)
     kb = b if mask == "prior" else 0
     if not pivot:
@@ -202,12 +226,10 @@ def test_k2_cluster_bits(cuda, monkeypatch, m, b, pivot, mask):
     before = blocked.panel_factor.launches
     p2, ct2, ok2 = blocked.panel_factor(strip, kb, used, pivot=pivot)
     assert blocked.panel_factor.launches == before + 1
-    p6, ct6, ok6 = _k6_at_k1(strip, kb, used, pivot)
-    assert torch.equal(p2, p6) and torch.equal(_bits(ct2), _bits(ct6))
-    assert bool(ok2) and ok6
-    p_t = blocked.panel_factor_twin(strip.cpu(), kb, used.cpu(),
-                                    pivot=pivot)[0]
+    p_t, ct_t, ok_t = _twin_on_cpu(strip, kb, used, pivot)
     assert torch.equal(p2.cpu(), p_t)
+    assert torch.equal(_bits(ct2.cpu()), _bits(ct_t))
+    assert bool(ok2) and ok_t
     if pivot:
         assert not bool(used[p2.long()].any())
     monkeypatch.setattr(blocked, "MAX_CLUSTER", 8)
@@ -226,13 +248,14 @@ def test_k2_cluster_bits(cuda, monkeypatch, m, b, pivot, mask):
 def test_k3_cluster_bits(cuda, monkeypatch, m, b, dtype, mask):
     """K3 at every shape the gates give it: pivot rows equal to the twin's
     on the CPU, equal at C = 8 and C = 16, and for an fp32 strip equal to
-    K6's at k = 1 (K3 runs K2's steps)."""
+    K2's (K3 runs K2's steps)."""
     strip, used = _strip_and_mask(cuda, m, b, mask, m + b + 1, dtype)
     p3 = blocked.pivot_search(strip, used)
     assert torch.equal(p3.cpu(), blocked.pivot_search_twin(strip.cpu(),
                                                            used.cpu()))
     if dtype == torch.float32:
-        assert torch.equal(p3, _k6_at_k1(strip, 0, used, True)[0])
+        assert torch.equal(p3, blocked.panel_factor(strip, 0, used,
+                                                    pivot=True)[0])
     monkeypatch.setattr(blocked, "MAX_CLUSTER", 8)
     assert torch.equal(blocked.pivot_search(strip, used), p3)
 
@@ -240,19 +263,19 @@ def test_k3_cluster_bits(cuda, monkeypatch, m, b, dtype, mask):
 @pytest.mark.parametrize("case", ["singular", "nan"])
 def test_k2_cluster_flags_singular_and_nan(cuda, case):
     """A strip with an all-zero column (a zero pivot at step 5) and one with
-    a NaN: ok false, as K6 at k = 1 and the twin say, and the same bytes as
-    K6 at k = 1."""
+    a NaN: ok false, as the twin on the CPU says, and the same pivot rows
+    and values (NaNs where it has NaNs) as that twin."""
     strip, used = _strip_and_mask(cuda, 4096, 128, "empty", 7)
     if case == "singular":
         strip[5] = 0.0
     else:
         strip[9, 300] = float("nan")
     p2, ct2, ok2 = blocked.panel_factor(strip, 0, used, pivot=True)
-    p6, ct6, ok6 = _k6_at_k1(strip, 0, used, True)
-    ok_t = blocked.panel_factor_twin(strip.cpu(), 0, used.cpu(),
-                                     pivot=True)[2]
-    assert not bool(ok2) and not ok6 and not bool(ok_t)
-    assert torch.equal(p2, p6) and torch.equal(_bits(ct2), _bits(ct6))
+    p_t, ct_t, ok_t = _twin_on_cpu(strip, 0, used, True)
+    assert not bool(ok2) and not ok_t
+    assert torch.equal(p2.cpu(), p_t)
+    torch.testing.assert_close(ct2.cpu(), ct_t, rtol=0, atol=0,
+                               equal_nan=True)
 
 
 def test_cluster_launch_is_checked(cuda):

@@ -84,7 +84,8 @@ def _jax_gj_kernel(a: np.ndarray, *, pivot: bool):
 @pytest.mark.parametrize("pivot", [True, False])
 @pytest.mark.parametrize("n,kind", [
     pytest.param(5, "normal", id="5"), pytest.param(128, "normal", id="128"),
-    pytest.param(200, "normal", id="200"), (32, "integers"),
+    pytest.param(200, "normal", id="200"),
+    pytest.param(300, "normal", id="300"), (32, "integers"),
     (128, "integers"), (128, "quarters"), (100, "quarters")])
 def test_gj_twin_matches_jax_kernel(n, kind, pivot):
     """Raw kernel outputs: pos identical, ok equal, pivot-order inverse
@@ -180,3 +181,140 @@ def test_fused_rejects_what_it_does_not_serve():
         tfused.fused_inverse(torch.zeros((641, 641)))
     with pytest.raises(ValueError):
         tfused.gj_kernel(torch.zeros((1, 100, 100)), pivot=True)
+
+
+# K1's cluster branch: (m, C for a batch that fills the card, C for one
+# matrix). The per-CTA count is the source's cluster_smem_bytes.
+CLUSTER_CASES = [(256, 2, 8), (384, 4, 8), (512, 8, 8), (640, 16, 16)]
+
+
+@pytest.mark.parametrize("m,c_full,c_one", CLUSTER_CASES)
+def test_cluster_geometry(m, c_full, c_one):
+    """C, the rows a CTA owns and its shared memory against one CTA's
+    232,448 bytes, at a batch that fills the card (C the smallest that
+    fits) and at one matrix (C grown, to at most 8 but where m needs 16);
+    at most 128 rows a CTA, every CTA the same share."""
+    for bsz, c in ((512, c_full), (1, c_one)):
+        geo = tfused.cluster_geometry(m, bsz)
+        assert geo.cluster == c and geo.rows * c == m and geo.rows <= 128
+        assert geo.threads == 512
+        rows = m // c
+        want = (rows * m * 4 + 2 * c * (4 * m + 16) + 2 * 4 * m + 16
+                + 4 * m + 36 * 4)
+        assert geo.smem == tfused.cluster_smem_bytes(m, c) == want
+        assert geo.smem <= 232448
+    smaller = c_full // 2
+    if smaller >= 2 and m // smaller <= 128:
+        assert tfused.cluster_smem_bytes(m, smaller) > 232448
+
+
+def test_cluster_geometry_raises():
+    """No cluster for m outside 256 .. 640 or off the 128 grid, and none
+    for m = 640 when only the portable 8 CTAs are allowed."""
+    for m in (128, 300, 768):
+        with pytest.raises(ValueError):
+            tfused.cluster_geometry(m)
+    with pytest.raises(ValueError, match="fits no cluster"):
+        tfused.cluster_geometry(640, max_cluster=8)
+    assert tfused.cluster_geometry(512, max_cluster=8).cluster == 8
+
+
+class _FakeLib:
+    """Stands in for the CUDA library on the CPU: admits every cluster
+    (7 resident) and records the launches."""
+
+    def __init__(self):
+        self.calls = []
+
+    def matinv_fused_clusters(self, m, cluster, smem, out):
+        import ctypes
+        ctypes.c_int.from_address(out).value = 7
+        return 0
+
+    def matinv_fused_gj(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("bsz,m", [(512, 256), (64, 640), (3, 128)])
+def test_gj_kernel_allocates_no_workspace(bsz, m, monkeypatch):
+    """K1's launch, run on the CPU against a stand-in library and meta
+    tensors: it allocates its outputs and nothing else (no (B, m, 2m)
+    workspace), and passes the cluster geometry of cluster_geometry."""
+    from types import SimpleNamespace
+
+    from gpu_matrix_inversion_tpu_torch.utils import cuda_build
+    lib = _FakeLib()
+    allocated = []
+    real_empty, real_like = torch.empty, torch.empty_like
+
+    def empty(*shape, **kw):
+        out = real_empty(*shape, **kw)
+        allocated.append(tuple(out.shape))
+        return out
+
+    def empty_like(x, **kw):
+        out = real_like(x, **kw)
+        allocated.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(cuda_build, "load", lambda: lib)
+    monkeypatch.setattr(tfused, "_plans", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: SimpleNamespace(cuda_stream=0))
+    a = real_empty((bsz, m, m), device="meta")
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch, "empty_like", empty_like)
+    before = tfused.gj_kernel.launches
+    tfused._launch(a, True)
+    assert tfused.gj_kernel.launches == before + 1
+    assert sorted(allocated) == sorted([(bsz, m, m), (bsz, m), (bsz,)])
+    (args,) = lib.calls
+    assert args[4:8] == (bsz, m, 1, 0)
+    if m == 128:
+        assert args[8:10] == (0, 0)
+    else:
+        geo = tfused.cluster_geometry(m, bsz)
+        assert args[8:10] == (geo.cluster, geo.smem)
+
+
+def _round_once(x: float, f: float, v: float) -> float:
+    """x - f v rounded once to float32 (ties to even), from the exact
+    rational value."""
+    from fractions import Fraction
+    exact = Fraction(x) - Fraction(f) * Fraction(v)
+    lo = np.float32(float(exact))          # within an ulp of it
+    best = None
+    for c in (np.nextafter(lo, np.float32(-np.inf)), lo,
+              np.nextafter(lo, np.float32(np.inf))):
+        key = (abs(Fraction(float(c)) - exact), int(c.view(np.int32)) & 1)
+        if best is None or key < best[0]:
+            best = (key, float(c))
+    return best[1]
+
+
+def test_fms_rounds_once():
+    """The twins' x - f v rounds once, as an FMA: on inputs where rounding
+    the float64 difference to float32 rounds twice and lands on the other
+    side of a tie (found by search; the first two differ from a plain
+    float64 emulation), and on random and integer-valued inputs, against
+    the exact rational value."""
+    cases = [(1657454720.0, 1.5891950130462646, -40.2719612121582),
+             (1655131392.0, 1.798779845237732, -35.579673767089844),
+             (2074533248.0, 1.7825062274932861, -35.904502868652344)]
+    rng = np.random.default_rng(7)
+    cases += [tuple(float(np.float32(t)) for t in rng.standard_normal(3))
+              for _ in range(300)]
+    cases += [(float(rng.integers(-50, 50)),
+               float(np.float32(1 / rng.integers(1, 9))),
+               float(rng.integers(-9, 9))) for _ in range(300)]
+    x, f, v = (torch.tensor(c, dtype=torch.float32) for c in zip(*cases))
+    got = tfused._fms(x, f, v)
+    want = torch.tensor([_round_once(*c) for c in cases],
+                        dtype=torch.float32)
+    assert torch.equal(got, want)
+    plain = (x.double() - f.double() * v.double()).float()
+    assert not torch.equal(plain[:2], want[:2])

@@ -229,3 +229,50 @@ def test_blocked_inverse_routes_lockstep(case, monkeypatch):
     _, ok = tblocked.blocked_inverse(a, block_size=16, **kwargs)
     assert bool(ok.all())
     assert calls == ([3] if case == "fp32_batch" else [])
+
+
+class _FakeLib:
+    """Stands in for the CUDA library on the CPU: admits every cluster
+    (7 resident) and records K6's launches."""
+
+    def __init__(self):
+        self.calls = []
+
+    def matinv_panel_clusters(self, *args):
+        import ctypes
+        ctypes.c_int.from_address(args[-1]).value = 7
+        return 0
+
+    def matinv_lockstep_factor(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("k,m,c", [(8, 1024, 8), (4, 2048, 16), (8, 768, 6)])
+def test_k6_takes_k2_cluster_geometry(k, m, c, monkeypatch):
+    """K6's launch, run on the CPU against a stand-in library and meta
+    tensors: k clusters of the geometry K2 takes for one (m, 128) panel
+    (ops/blocked.cluster_geometry: C = min(16, m // 128)), the working set
+    and strip rows in shared memory, and no global workspace."""
+    from types import SimpleNamespace
+
+    from gpu_matrix_inversion_tpu_torch.utils import cuda_build
+    lib = _FakeLib()
+    monkeypatch.setattr(cuda_build, "load", lambda: lib)
+    monkeypatch.setattr(tblocked, "_plans", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: SimpleNamespace(cuda_stream=0))
+    b = 128
+    strips = torch.empty((k, b, m), device="meta")
+    used = torch.empty((k, m), dtype=torch.int32, device="meta")
+    before = tlockstep.lockstep_factor.launches
+    tlockstep._launch(strips, b, used, True)
+    assert tlockstep.lockstep_factor.launches == before + 1
+    sub, kmask = tblocked._factor_geometry(m, b)
+    geo = tblocked.cluster_geometry(m, b, sub, 4)
+    assert geo.cluster == c and geo.wp_shared and geo.rows_shared
+    (args,) = lib.calls
+    assert args[5] is None                     # no workspace
+    assert args[6:13] == (k, m, b, sub, kmask, b, 1)
+    assert args[13:18] == (geo.cluster, geo.threads, 1, 1, geo.smem)
