@@ -37,7 +37,16 @@ checks tie-heavy inputs at m = 256 and 640, phase 4d holds K6 bit for bit
 to K2 per matrix and to its twin on the CPU, and phase 7 times K1 at
 (512, 256^2) and (1, 256^2) beside batched ``torch.linalg.inv``, the
 product call at n = 256, K6 at both lockstep shapes, the lockstep calls'
-idle share, and the fused calls' peak memory.
+idle share, and the fused calls' peak memory. The eighth slice added the
+Cholesky route (phase 5i: potri at 4096^2 and 8192^2, an SPD batch, an
+indefinite input, potrf against numpy, ``solve`` and ``Inverter`` with
+``method="cholesky"``, a junk upper triangle changing no bit), the race
+check (phase 6: ``check_deterministic`` with the caching allocator's free
+blocks and every SM's shared memory poisoned between runs, over K1-K7 and
+every route, after a control that must drift), and the host layer in
+phase 7 (potri under both product schedules beside its bound and the
+library's, ``measure_phases(4096)``, the sweep CLI's rows, and CUDA events
+against the profiler's device time on one GEMM, K7 and the blocked call).
 Each path runs with the kernels' launch counts zeroed just before it and
 read just after, and must have launched its kernels. It checks residual
 gates, repeat-run determinism, and times the kernels beside their twins,
@@ -53,6 +62,7 @@ The port imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -189,13 +199,18 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs an "
              "NVIDIA GPU")
     from gpu_matrix_inversion_tpu_torch import (
-        Inverter, inverse, matrix_inv_32, matrix_inversion_fp64,
-        matrix_inversion_no_pivots, slogdet, solve)
+        Inverter, api, cholesky_factor, cholesky_inverse, inverse,
+        matrix_inv_32, matrix_inversion_fp64, matrix_inversion_no_pivots,
+        slogdet, solve)
+    from gpu_matrix_inversion_tpu_torch.benchmarks.phases import (
+        SLOTS, measure_phases)
+    from gpu_matrix_inversion_tpu_torch.benchmarks.sweep import sweep_cuda
     from gpu_matrix_inversion_tpu_torch.models.newton_schulz import (
         newton_schulz_inverse)
-    from gpu_matrix_inversion_tpu_torch.ops import (blocked, fused, lockstep,
-                                                    lu, matmul)
-    from gpu_matrix_inversion_tpu_torch.utils import cuda_build
+    from gpu_matrix_inversion_tpu_torch.ops import (blocked, cholesky, fused,
+                                                    lockstep, lu, matmul)
+    from gpu_matrix_inversion_tpu_torch.utils import (cuda_build, determinism,
+                                                      profiling)
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
         hollow_random_matrix, well_conditioned_matrix)
     from gpu_matrix_inversion_tpu_torch.utils.precision import (
@@ -203,7 +218,7 @@ def main() -> None:
     # events_ms: CUDA events around the calls, after a warm-up; device_ms:
     # the profiler's device time, None ("not measured") if it saw none.
     from gpu_matrix_inversion_tpu_torch.utils.profiling import (
-        device_ms, events_ms)
+        device_kernels, device_ms, events_ms)
     from gpu_matrix_inversion_tpu_torch.utils.residual import (
         relative_residual)
 
@@ -952,12 +967,172 @@ def main() -> None:
     check(bool(ok_in) and r_in <= 1e-5, "Inverter ns: ok, residual <= 1e-5")
     del x_ns, x_mx, x_iv, x_in
 
-    # ---- phase 6: determinism -------------------------------------------
-    phase("phase 6: repeat runs")
-    first, _ = inverse(x4k)
-    second, _ = inverse(x4k)
-    check(torch.equal(first, second), "4096^2 blocked: bit-identical repeat")
-    del first, second, raw
+    # ---- phase 5i: the Cholesky route ------------------------------------
+    # Input G G^T / n + I (G standard normal from seed n, the product in
+    # float64 on the card, then cast to fp32; condition number <= 5).
+    # Gates: potri normalized residual <= 1e-6 (the JAX package's SPD tier,
+    # tests/test_cholesky.py), each member of an (8, 512^2) batch too; the
+    # factor within 1e-5 relative Frobenius of float64 numpy.linalg.cholesky;
+    # solve's backward error <= 1e-5 as the LU route's; Inverter <= 1e-6.
+    # Only the lower triangle is read: a random upper triangle changes no
+    # bit. An indefinite input (a diagonal entry of -50) gives ok false and
+    # no exception, and the flat API's empty vector.
+    phase("phase 5i: Cholesky route (potrf, potrs, potri)")
+
+    def spd(n: int, seed: int, batch: int = 0) -> torch.Tensor:
+        shape = (batch, n, n) if batch else (n, n)
+        g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            shape)).to(dev)
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        return (g @ g.mT / n + eye).float()
+
+    spd4k, spd8k = spd(4096, 4096), spd(8192, 8192)
+    zero_counts()
+    for n, xs in ((4096, spd4k), (8192, spd8k)):
+        inv_c, ok_c = cholesky_inverse(xs)
+        r_c = float(batched_residual(xs, inv_c))
+        log(f"  potri {n}^2: residual {r_c:.3e}")
+        check(bool(ok_c) and r_c <= 1e-6, f"potri {n}^2: ok, residual <= 1e-6")
+        if n == 4096:
+            inv_4k = inv_c
+        del inv_c
+    read_counts("cholesky_inverse 4096^2 and 8192^2 (library calls)", ())
+    inv_d, ok_d = inverse(spd4k, method="cholesky")
+    check(bool(ok_d) and bits_equal(inv_d, inv_4k),
+          "inverse(method='cholesky') bit-identical to cholesky_inverse")
+    junk = spd4k + torch.triu(torch.from_numpy(rng.uniform(
+        -50.0, 50.0, (4096, 4096)).astype(np.float32)).to(dev), 1)
+    inv_j, ok_j = cholesky_inverse(junk)
+    check(bool(ok_j) and bits_equal(inv_j, inv_4k),
+          "potri 4096^2 with a random upper triangle: bit-identical")
+    del inv_d, inv_j
+    xb8 = spd(512, 512, batch=8)
+    inv_b8, ok_b8 = cholesky_inverse(xb8)
+    r_b8 = batched_residual(xb8, inv_b8)
+    log(f"  potri (8, 512^2): max residual {float(r_b8.max()):.3e}")
+    check(bool(ok_b8.all()) and float(r_b8.max()) <= 1e-6,
+          "potri (8, 512^2): all ok, each residual <= 1e-6")
+    bad = spd(1024, 1024)
+    bad[517, 517] = -50.0
+    _, ok_bad = cholesky_inverse(bad)
+    _, ok_bad_f = cholesky_factor(bad)
+    flat_bad = api._invert_flat(bad.cpu().numpy().reshape(-1), 1024,
+                                np.float32, pivot=True, device="cuda",
+                                method="cholesky")
+    check(not bool(ok_bad) and not bool(ok_bad_f) and flat_bad.size == 0,
+          "indefinite 1024^2: potrf and potri ok false, no exception, the "
+          "flat API returns an empty vector")
+    low, ok_l = cholesky_factor(spd4k)
+    want_l = np.linalg.cholesky(spd4k.cpu().double().numpy())
+    d_l = float(np.linalg.norm(low.cpu().double().numpy() - want_l)
+                / np.linalg.norm(want_l))
+    log(f"  potrf 4096^2: relative Frobenius {d_l:.3e} from float64 numpy")
+    check(bool(ok_l) and d_l <= 1e-5,
+          "potrf 4096^2 within 1e-5 of float64 numpy.linalg.cholesky")
+    del low, want_l
+    rhs16 = torch.from_numpy(
+        rng.standard_normal((4096, 16)).astype(np.float32)).to(dev)
+    x_c, ok_xc = solve(spd4k, rhs16, method="cholesky", refine_iters=1)
+    x_cj, _ = solve(junk, rhs16, method="cholesky", refine_iters=1)
+    a64c, x64c = spd4k.double(), x_c.double()
+    berr_c = float(torch.linalg.norm(a64c @ x64c - rhs16.double())
+                   / (torch.linalg.norm(a64c) * torch.linalg.norm(x64c)))
+    log(f"  solve(method='cholesky', refine_iters=1) 4096^2 x 16: "
+        f"||Ax-b|| / (||A|| ||x||) = {berr_c:.3e}")
+    check(bool(ok_xc) and berr_c <= 1e-5,
+          "Cholesky solve backward error <= 1e-5")
+    check(bits_equal(x_cj, x_c),
+          "Cholesky solve with a junk upper triangle: bit-identical x")
+    x_ic, ok_ic = Inverter(method="cholesky", refine_iters=1).inverse(spd4k)
+    r_ic = float(batched_residual(spd4k, x_ic))
+    log(f"  Inverter(method='cholesky', refine_iters=1) 4096^2: residual "
+        f"{r_ic:.3e}")
+    check(bool(ok_ic) and r_ic <= 1e-6,
+          "Inverter cholesky refine_iters=1: ok, residual <= 1e-6")
+    del junk, xb8, inv_b8, bad, x_c, x_cj, x_ic, a64c, x64c, inv_4k
+
+    # ---- phase 6: determinism --------------------------------------------
+    # check_deterministic (utils/determinism.py) with perturb=True: before
+    # every run after the first, every free block of the caching allocator
+    # and every SM's shared memory are filled with 0xFF (NaN). A read of
+    # scratch, output or shared memory before it is written then drifts.
+    # The control, an uninitialised torch.empty, must drift (the first run
+    # reads a cached block zeroed here). Each kernel at its main path's
+    # shape, then each route; 3 runs, 2 for the split and FP64 routes.
+    phase("phase 6: check_deterministic over K1-K7 and every route")
+    scratch = torch.empty(1 << 22, device=dev)
+    del scratch
+    determinism.poison_allocator(dev, 0)
+    same, diff = determinism.check_deterministic(
+        lambda: torch.empty(1 << 22, device="cuda"), runs=3)
+    log(f"  control torch.empty(1 << 22): identical {same}, max_diff {diff}")
+    check(not same, "control: an uninitialised torch.empty drifts under the "
+          "poison")
+    sms_hit, smem_poison = determinism.poison_shared_memory(dev)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    filled = determinism.poison_allocator(dev)
+    log(f"  shared-memory poison: {sms_hit} of {sm_count} SMs, {smem_poison} "
+        f"bytes a block; allocator poison: {filled} free bytes")
+    check(sms_hit == sm_count and smem_poison >= 227 * 1024,
+          "the shared-memory poison fills 227 KiB on every SM")
+    k1_256 = torch.from_numpy(rng.standard_normal((512, 256, 256)).astype(
+        np.float32)).to(dev)
+    s2 = torch.from_numpy(rng.standard_normal((128, 4096)).astype(
+        np.float32)).to(dev)
+    u2 = torch.zeros(4096, dtype=torch.int32, device=dev)
+    s3 = torch.from_numpy(rng.standard_normal((64, 20032)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    u3 = torch.zeros(20032, dtype=torch.int32, device=dev)
+    d128 = torch.from_numpy(rng.standard_normal((256, 128, 128)).astype(
+        np.float32)).to(dev)
+    d128_lu = d128 + 128 * torch.eye(128, device=dev)
+    s6 = torch.from_numpy(rng.standard_normal((8, 128, 1024)).astype(
+        np.float32)).to(dev)
+    u6 = torch.zeros((8, 1024), dtype=torch.int32, device=dev)
+    g7 = [torch.from_numpy(rng.standard_normal((4096, 4096)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    g7_bf16 = [g.bfloat16() for g in g7]
+    xs16 = lockstep_in[(16, 1024)]
+    x4k64_dev = torch.from_numpy(a4k64).to(dev)
+
+    def lockstep_inverse():
+        with lockstep_on():
+            return inverse(xs16)
+
+    det_cases = [
+        ("K1 (4096, 128^2)", lambda: fused.gj_kernel(xb, pivot=True), 3),
+        ("K1 (512, 256^2)", lambda: fused.gj_kernel(k1_256, pivot=True), 3),
+        ("K2 (4096, 128)",
+         lambda: blocked.panel_factor(s2, 0, u2, pivot=True), 3),
+        ("K3 (20032, 64) bf16", lambda: blocked.pivot_search(s3, u3), 3),
+        ("K4 b=128 x 256", lambda: blocked.invert_small(d128, pivot=True), 3),
+        ("K5 b=128 x 256", lambda: lu.small_lu(d128_lu), 3),
+        ("K6 k=8 (1024, 128)",
+         lambda: lockstep.lockstep_factor(s6, 0, u6, pivot=True), 3),
+        ("K7 4096^3 fp32", lambda: matmul.tiled_matmul(*g7), 3),
+        ("K7 4096^3 bf16", lambda: matmul.tiled_matmul(*g7_bf16), 3),
+        ("fused inverse 4096 x 128^2", lambda: inverse(xb), 3),
+        ("blocked 4096^2 refined", lambda: inverse(x4k), 3),
+        ("split 20000^2", lambda: inverse(x20), 2),
+        ("FP64 4096^2", lambda: inverse(x4k64_dev), 2),
+        ("bf16 search 4096^2", lambda: inverse(x4k, search_bf16=True), 3),
+        ("LU getri 4096^2", lambda: inverse(x4k, method="lu"), 3),
+        ("LU solve 4096^2 x 16", lambda: solve(x4k, rhs), 3),
+        ("lockstep (16, 1024^2)", lockstep_inverse, 3),
+        ("ns 4096^2", lambda: inverse(xwc, method="ns"), 3),
+        ("Cholesky potri 4096^2", lambda: cholesky_inverse(spd4k), 3),
+    ]
+    shared_before = determinism.poison_shared_memory.launches
+    for name, fn, runs in det_cases:
+        t0 = time.perf_counter()
+        same, diff = determinism.check_deterministic(fn, runs=runs)
+        log(f"  {name}: identical {same}, max_diff {diff}, "
+            f"{time.perf_counter() - t0:.2f} s ({runs} runs)")
+        check(same, f"{name}: bit-identical over {runs} poisoned runs")
+    poisons = determinism.poison_shared_memory.launches - shared_before
+    check(poisons == sum(runs - 1 for _, _, runs in det_cases),
+          f"shared memory poisoned before every repeat ({poisons} launches)")
+    del k1_256, s2, s3, d128, d128_lu, s6, g7, g7_bf16, raw
 
     # ---- phase 7: timings -----------------------------------------------
     phase(f"phase 7: timings (CUDA events, after warm-up) on {card}")
@@ -1161,6 +1336,146 @@ def main() -> None:
                 device_ms(lambda: xa @ xb, 10))
     del big, xa, xb
     times["ns_4096_ms"] = events_ms(lambda: inverse(xwc, method="ns"), iters=1)
+
+    # The eighth slice's timings, each line with the card's name and power
+    # limit. potri at 4096^2 and 8192^2 under both product schedules
+    # (MATINV_POTRI_PRODUCT, read at import; set on the module here): CUDA
+    # events, the profiler's device time, the idle share and the top
+    # kernels, beside the bound (potri_effective_flops of that schedule at
+    # the FP32 peak, or the bytes) and torch.cholesky_inverse after
+    # torch.linalg.cholesky as a yardstick (the route never calls it).
+    def profile_call(fn):
+        """(device ms, top kernels) of one call after a warm-up; (None,
+        []) when the profiler saw no device time ("not measured")."""
+        fn()
+        torch.cuda.synchronize()
+        try:
+            rows = device_kernels(fn)
+        except profiling.NoDeviceTime:
+            return None, []
+        return sum(ms for _, _, ms in rows), rows[:5]
+
+    def show(val) -> str:
+        return "not measured" if val is None else f"{val:.4f}"
+
+    schedule = cholesky._POTRI_PRODUCT_2D
+    for n, xs in ((4096, spd4k), (8192, spd8k)):
+        for name in ("cols", "2d"):
+            cholesky._POTRI_PRODUCT_2D = name == "2d"
+            ev = events_ms(lambda: cholesky_inverse(xs), iters=3)
+            dv, top = profile_call(lambda: cholesky_inverse(xs))
+            fl = cholesky.potri_effective_flops(n)
+            b_ms, b_by = bound(fl, 2 * n * n * 4)
+            log(f"  potri {n}^2 schedule {name}: {ev:.4f} ms events, "
+                f"{show(dv)} ms device, idle share "
+                f"{show(None if dv is None else 1 - dv / ev)}; bound "
+                f"{b_ms:.4f} ms ({b_by}: {fl / 1e9:.1f} GFLOP)   [{card}]")
+            for key, count, ms in top:
+                log(f"    {ms:10.4f} ms  {count:5d}x  {key[:90]}")
+            times[f"potri_{n}_{name}_ms"] = ev
+            times[f"potri_{n}_{name}_device_ms"] = dv
+        cholesky._POTRI_PRODUCT_2D = schedule
+        with matmul_precision("highest"):
+            lib = lambda: torch.cholesky_inverse(torch.linalg.cholesky(xs))
+            ev = events_ms(lib, iters=3)
+            dv, _ = profile_call(lib)
+        log(f"  torch.cholesky_inverse(torch.linalg.cholesky(a)) {n}^2 "
+            f"(yardstick): {ev:.4f} ms events, {show(dv)} ms device   "
+            f"[{card}]")
+        times[f"potri_{n}_library_ms"] = ev
+        times[f"potri_{n}_library_device_ms"] = dv
+
+    # measure_phases(4096): device time per Res slot of the raw blocked
+    # call on the hollow matrix of seed 0.
+    ph = measure_phases(4096, device=dev)
+    xh0 = torch.from_numpy(hollow_random_matrix(4096, seed=0)).to(dev)
+
+    def raw0():
+        return blocked.blocked_inverse(xh0, block_size=128, refine=0)
+
+    call_ms = device_ms(raw0, 3)
+    k2_ms = device_ms(raw0, 3, "panel_factor")
+    slot_ms = sum(ph[k] for k in SLOTS) * 1e3
+    log("  measure_phases(4096), device ms: " + ", ".join(
+        f"{k} {v * 1e3:.4f}" for k, v in ph.items())
+        + f"; slots' sum {slot_ms:.4f}, the call profiled alone "
+        f"{show(call_ms)}, K2 in it {show(k2_ms)}   [{card}]")
+    # The slots against total_compute, the call's device time in the same
+    # profiled sessions; another session differs by the profiler's own
+    # spread (PERF.md section 7), so the call profiled alone is printed,
+    # and K2's share of it must land in the pivot slot (a lost
+    # attribution read 0.25 of 10.4 ms).
+    check(abs(slot_ms - ph["total_compute"] * 1e3)
+          <= 0.01 * ph["total_compute"] * 1e3,
+          "measure_phases(4096): the slots add up to the call's device time "
+          "within 1%")
+    check(k2_ms is not None and ph["pivot"] * 1e3 >= 0.9 * k2_ms,
+          "measure_phases(4096): the pivot slot holds K2's device time")
+    del xh0
+
+    # The sweep CLI's rows (seconds; each span ends with a synchronize):
+    # auto at 256 (fused), 1024 and 4096 (blocked), and potri on SPD input.
+    rows = io.StringIO()
+    sweep_cuda(0, rows, sizes=[256, 1024, 4096], method="auto")
+    sweep_cuda(0, rows, sizes=[4096], method="cholesky", spd=True)
+    for row, gate in zip(rows.getvalue().splitlines(),
+                         (1e-5, 1e-6, 1e-6, 1e-6)):
+        log(f"  sweep row: {row}   [{card}]")
+        check(float(row.split()[7]) <= gate,
+              f"sweep row n = {row.split()[0]}: residual <= {gate}")
+
+    # Which clock: CUDA events around back-to-back calls against the
+    # profiler's summed device time, for the 4096^3 FP32 GEMM, K7 fp32 and
+    # the blocked 4096^2 refined call, twice each in turns (events,
+    # profiler, events, profiler), with the SM clock and power read before
+    # and after.
+    def smi_state() -> str:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+             "temperature.gpu", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+
+    log(f"  clocks before: {smi_state()}")
+    ga = torch.from_numpy(rng.standard_normal((4096, 4096)).astype(
+        np.float32)).to(dev)
+    with matmul_precision("highest"):
+        for name, fn, iters in (
+                ("torch.matmul 4096^3 fp32", lambda: ga @ ga, 20),
+                ("K7 4096^3 fp32", lambda: matmul.tiled_matmul(ga, ga), 20),
+                ("blocked 4096^2 refined", lambda: inverse(x4k), 5)):
+            reads = []
+            for _ in range(2):
+                reads.append(events_ms(fn, iters=iters))
+                reads.append(device_ms(fn, iters))
+            log(f"  clock check {name}: events {show(reads[0])}, device "
+                f"{show(reads[1])}, events {show(reads[2])}, device "
+                f"{show(reads[3])} ms   [{card}]")
+            times[f"clock_{name.split()[0].replace('.', '_')}_events_ms"] = (
+                reads[2])
+            times[f"clock_{name.split()[0].replace('.', '_')}_device_ms"] = (
+                reads[3])
+        # Does the profiler return every launch? The records of one
+        # session of 20 GEMMs, alone and between profiling.bracketed's two
+        # marker kernels (device_ms and measure_phases bracket every
+        # session and leave the markers out).
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        for bracket in (False, True):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with (profiling.bracketed() if bracket
+                      else contextlib.nullcontext()):
+                    for _ in range(20):
+                        ga @ ga
+                torch.cuda.synchronize()
+            seen = [(e.key, e.count) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            where = "between markers" if bracket else "alone"
+            log(f"  kernel records of 20 GEMMs {where}: " + "; ".join(
+                f"{count}x {key[:70]}" for key, count in seen))
+    log(f"  clocks after: {smi_state()}")
+    del ga
     rates = {
         "k1_batch4096_inv_per_s": 4096 / (times["k1_batch4096_ms"] / 1e3),
         "k1_twin_batch4096_inv_per_s":

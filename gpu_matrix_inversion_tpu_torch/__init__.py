@@ -17,9 +17,21 @@ port carries:
   matrices per launch of kernel K6 (``csrc/panel_factor.cu``);
 - the LU route (getrf through K3 and K5, ``csrc/small_lu.cu``; getri by
   triangular inversion), ``det`` and ``slogdet`` (``ops/lu.py``);
+- the Cholesky route: potrf, potrs and potri (``cholesky_factor``,
+  ``cholesky_solve``, ``cholesky_inverse``; ``ops/cholesky.py``), behind
+  ``inverse(method="cholesky")`` and ``solve(method="cholesky")``, on
+  library calls as the reference is on XLA's primitives;
 - the Newton-Schulz family (``models/newton_schulz.py``) and the
   verification GEMM ``tiled_matmul``, kernel K7 (``csrc/tiled_matmul.cu``,
-  ``ops/matmul.py``).
+  ``ops/matmul.py``);
+- the host layer: ``check_deterministic`` with on-card poisoning between
+  runs (``utils/determinism.py``, ``csrc/poison.cu``), ``trace``
+  (``utils/profiling.py``), the per-phase breakdown ``measure_phases``
+  (``benchmarks/phases.py``) and the reference's sweep CLI
+  (``benchmarks/sweep.py``).
+
+One route of the JAX package is left: ``sharded`` (``parallel/``), which
+raises ``NotImplementedError``.
 
 The kernels are CUDA C++ for ``sm_90a``, built with ``nvcc`` on first use
 (``utils/cuda_build.py``); importing the package builds nothing. Every
@@ -41,6 +53,11 @@ from gpu_matrix_inversion_tpu_torch.api import (
 )
 from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
     gauss_jordan_inverse)
+from gpu_matrix_inversion_tpu_torch.ops.cholesky import (
+    cholesky_factor,
+    cholesky_inverse,
+    cholesky_solve,
+)
 from gpu_matrix_inversion_tpu_torch.ops.lu import (det, invert_triangular,
                                                    slogdet)
 from gpu_matrix_inversion_tpu_torch.models.solver import (Inverter, inverse,
@@ -60,6 +77,9 @@ __all__ = [
     "no_pivots_bench",
     "matrix_multiply",
     "gauss_jordan_inverse",
+    "cholesky_factor",
+    "cholesky_inverse",
+    "cholesky_solve",
     "det",
     "slogdet",
     "invert_triangular",

@@ -133,7 +133,8 @@ def _bench(flat, order: int, dtype, *, pivot: bool, device,
     buffers -> host-to-device transfer; compile -> the first call (kernel
     build on first use, plus warm-up); make_augmented/pivot/row/column ->
     inside total_compute (the kernels replace the reference's 5-kernel x
-    N-iteration host loop); get_inverted -> readback. Every span ends
+    N-iteration host loop), filled by ``benchmarks/phases.py`` with
+    ``MATINV_DEBUG_PHASES=1``; get_inverted -> readback. Every span ends
     with a device synchronize, so it measures the device work, not its
     enqueue.
 
@@ -175,6 +176,18 @@ def _bench(flat, order: int, dtype, *, pivot: bool, device,
     else:
         res.inversa32 = out.astype(np.float32)
     res.times = dict(timer.times, total=timer.total())
+    # MATINV_DEBUG_PHASES=1: fill the reference's make_augmented / pivot /
+    # row / column slots from benchmarks/phases.py (api.py:196-207 of the
+    # JAX package), where `auto` takes the blocked route. It runs after
+    # `total` is final and keeps the span-measured total_compute.
+    if (os.environ.get("MATINV_DEBUG_PHASES") == "1" and res.ok
+            and dtype == np.float32 and order >= 512):
+        from gpu_matrix_inversion_tpu_torch.benchmarks.phases import (
+            measure_phases)
+        phases = measure_phases(order, pivot=pivot, k=2, reps=1,
+                                device=device)
+        phases.pop("total_compute", None)
+        res.times.update(phases)
     return res
 
 

@@ -10,16 +10,19 @@ routes to
                split path) + GEMMs; fp64 through K3's f32-search tier
 - ``lu``       LU factorization (K3 + K5) + getri, and :func:`solve`'s
                triangular solves
+- ``cholesky`` potrf + potri for SPD input (library calls, as the
+               reference calls XLA's primitives); potrf + potrs in
+               :func:`solve`
 - ``ns``       Newton-Schulz iteration (pivot-free, GEMMs only; well-
                conditioned matrices and warm starts)
 
 ``auto`` picks by shape with the reference's thresholds, unchanged, so
 both packages take the same route on the same input: batched or small
 fp32/bf16 matrices go to ``fused``, large ones to ``blocked``, small FP64
-ones to ``spec``; :func:`solve` takes the LU route from n = 512. The
-reference's ``cholesky`` and ``sharded`` routes are not ported yet and
-raise ``NotImplementedError``. :class:`Inverter` is the config-driven
-session object.
+ones to ``spec``; :func:`solve` takes the LU route from n = 512; ``auto``
+never picks ``cholesky``. The reference's ``sharded`` route is not ported
+yet and raises ``NotImplementedError``. :class:`Inverter` is the
+config-driven session object.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ import torch
 from gpu_matrix_inversion_tpu_torch.models.newton_schulz import (
     newton_schulz_inverse)
 from gpu_matrix_inversion_tpu_torch.ops import lu as lu_ops
+from gpu_matrix_inversion_tpu_torch.ops.cholesky import (cholesky_factor,
+                                                         cholesky_inverse,
+                                                         cholesky_solve)
 from gpu_matrix_inversion_tpu_torch.ops.blocked import blocked_inverse
 from gpu_matrix_inversion_tpu_torch.ops.fused import (FUSED_MAX_N,
                                                       fused_inverse)
@@ -44,7 +50,7 @@ from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
 
 METHODS = ("auto", "spec", "fused", "blocked", "lu", "cholesky", "sharded",
            "ns")
-_NOT_PORTED = ("cholesky", "sharded")
+_NOT_PORTED = ("sharded",)
 _BLOCKED_MIN_N = 512
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -61,6 +67,11 @@ def _resolve(method: str, a: torch.Tensor) -> str:
     if a.dtype in _KERNEL_DTYPES or n >= _BLOCKED_MIN_N:
         return "blocked"
     return "spec"
+
+
+def _symmetrized_lower(a: torch.Tensor) -> torch.Tensor:
+    """``tril(a) + tril(a, -1)^T``: the matrix the Cholesky route reads."""
+    return torch.tril(a) + torch.tril(a, -1).mT
 
 
 def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
@@ -110,6 +121,8 @@ def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
         if a.shape[-1] >= 256:
             return lu_ops.lu_inverse_fast(a)
         return lu_ops.lu_inverse(a)
+    if resolved == "cholesky":
+        return cholesky_inverse(a)
     if resolved == "ns":
         return newton_schulz_inverse(a)
     return gauss_jordan_inverse(a, pivot=pivot)
@@ -125,7 +138,9 @@ def solve(a: torch.Tensor, b: torch.Tensor, *, method: str = "auto",
     runs forward/back substitution; the other methods form the explicit
     inverse and multiply. ``refine_iters`` applies iterative refinement
     reusing the factorization or the inverse (O(n^2 k) per iteration).
-    ``method="cholesky"`` is not ported yet and raises.
+    ``method="cholesky"`` runs potrf + potrs and never forms the inverse;
+    it reads only ``a``'s lower triangle, and refines against that
+    triangle symmetrized.
     """
     if not isinstance(a, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(a).__name__}")
@@ -133,11 +148,21 @@ def solve(a: torch.Tensor, b: torch.Tensor, *, method: str = "auto",
     vec = b.ndim == a.ndim - 1          # a single right-hand side
     if vec:
         b = b[..., None]
-    if method == "cholesky":
-        raise NotImplementedError(
-            "method='cholesky' is not ported yet (ROADMAP Queue 1)")
     n = a.shape[-1]
-    if method == "lu" or (method == "auto" and n >= _BLOCKED_MIN_N):
+    if method == "cholesky":
+        low, ok_f = cholesky_factor(a, **({} if block_size is None
+                                          else {"block_size": block_size}))
+        x, ok = cholesky_solve(low, b)
+        ok = ok_f & ok
+        if refine_iters > 0:
+            # The factor read only a's lower triangle; the residual uses
+            # the same matrix, or a junk upper triangle corrupts every
+            # correction (solver.py:159-184).
+            asym = _symmetrized_lower(a)
+            with matmul_precision("highest"):
+                for _ in range(refine_iters):
+                    x = x + cholesky_solve(low, b - asym @ x)[0]
+    elif method == "lu" or (method == "auto" and n >= _BLOCKED_MIN_N):
         if n >= 256:
             kwargs = {} if block_size is None else {"block_size": block_size}
             lu, perm, ok_f = lu_ops.lu_factor_blocked(a, pivot=pivot,
@@ -205,6 +230,10 @@ class Inverter:
                         block_size=cfg.block_size, precision=cfg.precision,
                         search_bf16=cfg.search_bf16)
         if cfg.refine_iters > 0:
+            if cfg.method == "cholesky":
+                # The factor read only the lower triangle: refine against
+                # the same symmetrized matrix (solver.py:259-269).
+                a = _symmetrized_lower(a)
             x = newton_schulz_refine(a, x, iters=cfg.refine_iters)
             ok = ok & torch.isfinite(x).all(dim=(-2, -1))
         return x, ok

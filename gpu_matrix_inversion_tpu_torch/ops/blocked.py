@@ -56,6 +56,7 @@ from gpu_matrix_inversion_tpu_torch.ops.refine import newton_schulz_refine
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
 from gpu_matrix_inversion_tpu_torch.utils.precision import (PRECISIONS,
                                                             matmul_precision)
+from gpu_matrix_inversion_tpu_torch.utils.profiling import phase
 
 DEFAULT_BLOCK_SIZE = 256
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -620,34 +621,46 @@ def _factor_panel(strip: torch.Tensor, kb: int, used: torch.Tensor, *,
 
     On the fused route C^T comes from K2. Otherwise it is assembled from
     the (b, b) pivot-block inverse: C = (E - L_masked) @ D^-1 - E, one
-    (m, b) @ (b, b) GEMM at :func:`_mm`'s precision.
+    (m, b) @ (b, b) GEMM at :func:`_mm`'s precision. The phase ranges
+    (``utils/profiling.phase``) mark the pivot search (K2, K3, the logical
+    panel) as ``pivot`` and the pivot-block inverse (K4, the plain fp64
+    Gauss-Jordan) as ``row``.
     """
     m = strip.shape[0]
     dev = strip.device
     if emit:
-        return panel_factor(strip.t().contiguous(), kb, used, pivot=pivot)
+        with phase("pivot"):
+            return panel_factor(strip.t().contiguous(), kb, used,
+                                pivot=pivot)
     if use_kernels:
         # The split path: K3 finds the pivots (no-pivot rows are simply
         # kb..kb+b-1, blocked.py:738-743), K4 inverts the pivot block.
-        if pivot:
-            search = strip.to(torch.bfloat16) if search_bf16 else strip
-            pivrows = pivot_search(search.t().contiguous(), used)
-        else:
-            pivrows = torch.arange(kb, kb + b, dtype=torch.int32, device=dev)
-        dinv, ok = invert_small(strip[pivrows.long()], pivot=pivot)
+        with phase("pivot"):
+            if pivot:
+                search = strip.to(torch.bfloat16) if search_bf16 else strip
+                pivrows = pivot_search(search.t().contiguous(), used)
+            else:
+                pivrows = torch.arange(kb, kb + b, dtype=torch.int32,
+                                       device=dev)
+        with phase("row"):
+            dinv, ok = invert_small(strip[pivrows.long()], pivot=pivot)
     elif search_f32 and pivot:
         # The FP64 f32-search tier (blocked.py:750-767): pivots from K3 on
         # the strip cast to fp32, the pivot block inverted in fp64.
-        pivrows = pivot_search(strip.float().t().contiguous(), used)
-        dinv, ok = _gauss_jordan_aug(strip[pivrows.long()][None],
-                                     pivot=pivot)
-        dinv, ok = dinv[0], ok[0]
+        with phase("pivot"):
+            pivrows = pivot_search(strip.float().t().contiguous(), used)
+        with phase("row"):
+            dinv, ok = _gauss_jordan_aug(strip[pivrows.long()][None],
+                                         pivot=pivot)
+            dinv, ok = dinv[0], ok[0]
     else:
-        pivrows, ok_p = _panel_pivots_logical(strip, used, kb, b=b,
-                                              pivot=pivot)
-        dinv, ok_d = _gauss_jordan_aug(strip[pivrows.long()][None],
-                                       pivot=pivot)
-        dinv, ok = dinv[0], ok_p & ok_d[0]
+        with phase("pivot"):
+            pivrows, ok_p = _panel_pivots_logical(strip, used, kb, b=b,
+                                                  pivot=pivot)
+        with phase("row"):
+            dinv, ok_d = _gauss_jordan_aug(strip[pivrows.long()][None],
+                                           pivot=pivot)
+            dinv, ok = dinv[0], ok_p & ok_d[0]
     rows = pivrows.long()
     lhs = -strip
     lhs[rows] = torch.eye(b, dtype=strip.dtype, device=dev)
@@ -764,7 +777,8 @@ def _blocked_gj(a: torch.Tensor, *, pivot: bool, b: int, group_size: int,
     n = a.shape[-1]
     m = max(_round_up(n, b), b)
     dev, dtype = a.device, a.dtype
-    aug = _augment(a, m)
+    with phase("make_augmented"):
+        aug = _augment(a, m)
     # The FP64 f32-search tier where the f32 search reaches (blocked.py:
     # 940-942); single-chip only, as in the reference.
     route = dict(pivot=pivot, use_kernels=use_kernels,

@@ -56,6 +56,8 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _I, _P),
     # a, b, c, m, n, k, lda, ldb, bf16, stream
     "matinv_tiled_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # blocks, smids, smem_bytes (int *), stream
+    "matinv_poison_shared": (_I, _P, _P, _P),
 }
 
 _lib = None

@@ -1,17 +1,81 @@
-"""Observability: the startup device dump, the per-phase report and the
-device-time breakdown of one call.
+"""Observability: traces, the startup device dump, the per-phase report
+and the device-time breakdown of one call.
 
-Port of the two pieces of ``gpu_matrix_inversion_tpu/utils/profiling.py``
-that the verbose ``matrix_inversion_fp32`` path uses. The reference prints
-its CL_DEVICE_* attributes at startup and a per-phase trace with derived
-GFLOPS afterwards (``matrix_inversion_FP32.cpp:304-333``, ``:711-723``).
+Port of ``gpu_matrix_inversion_tpu/utils/profiling.py``. The reference
+prints its CL_DEVICE_* attributes at startup and a per-phase trace with
+derived GFLOPS afterwards (``matrix_inversion_FP32.cpp:304-333``,
+``:711-723``). :func:`trace` replaces the JAX package's ``jax.profiler``
+capture with a ``torch.profiler`` one. :func:`phase` marks the blocked
+driver's phases for it and for ``benchmarks/phases.py``.
 :func:`device_kernels`, :func:`device_ms` and :func:`events_ms` serve the
 measurement scripts (``chip_smoke.py``, ``probes/``).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+# Whether phase() opens a record_function range; off outside trace() and
+# phase_ranges(), so that the hot path pays one flag test a phase.
+_ranges_on = False
+
+
+def phase(name: str):
+    """A ``torch.profiler.record_function`` range ``matinv::<name>`` while
+    phase ranges are on (:func:`phase_ranges`, :func:`trace`), else a
+    no-op context. The blocked driver marks three of the reference's Res
+    slots with it: ``make_augmented``, ``pivot`` and ``row``; the fourth,
+    ``column``, is the rest of the call."""
+    if _ranges_on:
+        return torch.profiler.record_function(f"matinv::{name}")
+    return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def phase_ranges():
+    """Turn :func:`phase`'s ranges on for the enclosed block."""
+    global _ranges_on
+    prev, _ranges_on = _ranges_on, True
+    try:
+        yield
+    finally:
+        _ranges_on = prev
+
+
+def _activities(device) -> list:
+    """Profiler activities for ``device``: CPU, plus CUDA on a CUDA device,
+    which must be present (nothing carries on without the card)."""
+    from torch.profiler import ProfilerActivity
+    device = torch.device(device)
+    if device.type == "cpu":
+        return [ProfilerActivity.CPU]
+    if device.type != "cuda":
+        raise ValueError(f"trace records cpu or cuda, not {device}")
+    if not torch.cuda.is_available() or (
+            device.index is not None
+            and device.index >= torch.cuda.device_count()):
+        raise RuntimeError(f"trace on {device}: no such CUDA device")
+    return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device="cuda"):
+    """Capture a ``torch.profiler`` trace of the enclosed block into
+    ``log_dir`` (``*.pt.trace.json``, readable in TensorBoard's profiler
+    plugin and in Perfetto), with the blocked driver's phase ranges on.
+    Records the CUDA activity of the block when ``device`` is a CUDA device
+    (raising if it is absent), CPU activity only for ``device="cpu"``."""
+    from torch.profiler import profile, tensorboard_trace_handler
+    activities = _activities(device)
+    cuda = len(activities) > 1
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        with phase_ranges():
+            yield
+        if cuda:
+            torch.cuda.synchronize(device)
 
 
 def device_info(device="cuda") -> dict:
@@ -67,6 +131,28 @@ def print_phase_report(res, order: int, out=None) -> None:
     print(f"  {'status':>14}: {'ok' if res.ok else 'FAILED'}", file=out)
 
 
+def is_marker(name: str) -> bool:
+    """Whether a device record is one of :func:`bracketed`'s markers."""
+    return "spin_kernel" in name
+
+
+@contextlib.contextmanager
+def bracketed(device="cuda"):
+    """Launch a marker kernel (``torch.cuda._sleep``'s ``spin_kernel``)
+    before and after the block on a CUDA device. On the H100 host a
+    profiled session has come back without the record of one kernel at
+    its start or end: a session of 20 GEMMs between two markers held all
+    20 GEMMs and one marker, and without markers n back-to-back launches
+    of one kernel read (n - 1)/n of CUDA events' time. The markers take
+    that loss; device time leaves them out (:func:`is_marker`)."""
+    on = torch.device(device).type == "cuda" and torch.cuda.is_available()
+    if on:
+        torch.cuda._sleep(1)
+    yield
+    if on:
+        torch.cuda._sleep(1)
+
+
 class NoDeviceTime(RuntimeError):
     """torch.profiler recorded no device activity for a profiled call, in
     every session :func:`device_kernels` tried."""
@@ -80,13 +166,15 @@ def device_kernels(fn, tries: int = 3) -> list[tuple[str, int, float]]:
     then (seen on the H100 host: one session of dozens in a process, the
     next one fine), so a session that saw no device time is profiled again,
     up to ``tries`` sessions (``fn`` runs once in each); then this raises
-    :class:`NoDeviceTime`."""
+    :class:`NoDeviceTime`. ``fn`` runs between :func:`bracketed`'s
+    markers, which the rows leave out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            with bracketed():
+                fn()
             torch.cuda.synchronize()
         # Kernel and memcpy entries only: an operator's own entry would
         # count its kernels' time a second time.
@@ -94,7 +182,7 @@ def device_kernels(fn, tries: int = 3) -> list[tuple[str, int, float]]:
                  getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
                 for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+                if e.device_type == DeviceType.CUDA and not is_marker(e.key)]
         rows.sort(key=lambda row: -row[2])
         if rows and rows[0][2] > 0:
             return rows

@@ -37,7 +37,8 @@ one card. It prints and writes to ``--out`` a JSON record:
   null if the profiler saw none); ``torch.linalg.inv`` beside K1 (at
   (4096, 128^2) and (512, 256^2)) and K4;
   the summed device time of one call of the blocked 4096^2 inverse, raw
-  and refined, of LU getri and of Newton-Schulz at 4096^2.
+  and refined, of LU getri and of Newton-Schulz at 4096^2, and each of
+  those calls by CUDA events (mean of three, after a warm-up).
 
 ``--compare`` prints, for each output, whether the two records hash it
 alike, else whether its values agree up to the sign of zeros (and how
@@ -242,6 +243,7 @@ def measure() -> dict:
             ("blocked_4096_refined", lambda: blocked.blocked_inverse(x4k)),
             ("lu_inverse_4096", lambda: inverse(x4k, method="lu")),
             ("ns_4096", lambda: inverse(wc4k, method="ns"))):
+        ms[label] = prof.events_ms(fn, 3)
         ms[f"{label}_device"] = prof.device_ms(fn)
     return {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

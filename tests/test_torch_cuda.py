@@ -594,3 +594,120 @@ def test_main_path_launches_kernels_and_repeats(cuda):
     second, _ = inverse(big)
     assert torch.equal(first, second)
     assert relative_residual(big_np, first.cpu().numpy()) < 1e-6
+
+
+def _spd(n, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((n, n))
+    return (g @ g.T / n + np.eye(n)).astype(np.float32)
+
+
+def test_potri_on_card(cuda):
+    """potri at 1024^2 under the residual gate chip_smoke.py holds at
+    4096^2 (1e-6), bit-identical through inverse(method="cholesky"); one
+    diagonal entry set to -50 gives ok False, no exception."""
+    from gpu_matrix_inversion_tpu_torch import cholesky_inverse, inverse
+    from gpu_matrix_inversion_tpu_torch.utils.residual import (
+        relative_residual)
+    a = _spd(1024, seed=1024)
+    x = torch.from_numpy(a).to(cuda)
+    inv, ok = cholesky_inverse(x)
+    assert bool(ok) and relative_residual(a, inv.cpu().numpy()) <= 1e-6
+    inv2, ok2 = inverse(x, method="cholesky")
+    assert bool(ok2) and torch.equal(inv, inv2)
+    bad = x.clone()
+    bad[517, 517] = -50.0
+    _, ok_bad = cholesky_inverse(bad)
+    assert not bool(ok_bad)
+
+
+def test_allocator_poison_control(cuda):
+    """check_deterministic's allocator poison reaches the block the next
+    allocation reuses: an uninitialised torch.empty comes back NaN in the
+    second run, so the check reports drift."""
+    from gpu_matrix_inversion_tpu_torch.utils import determinism
+    # The first run reads a cached block filled with zeros, not the poison
+    # an earlier check may have left there.
+    scratch = torch.empty(1 << 22, device=cuda)
+    del scratch
+    determinism.poison_allocator(cuda, 0)
+    identical, _ = determinism.check_deterministic(
+        lambda: torch.empty(1 << 22, device=cuda), runs=3)
+    assert not identical
+    x = torch.from_numpy(_spd(256, seed=3)).to(cuda)
+    assert determinism.check_deterministic(lambda t: t @ t, x, runs=3)[0]
+    held = torch.empty(3 << 20, dtype=torch.uint8, device=cuda)
+    del held
+    assert determinism.poison_allocator(cuda) >= 3 << 20
+    again = torch.empty(3 << 20, dtype=torch.uint8, device=cuda)
+    assert bool((again == 0xFF).all())
+
+
+def test_shared_memory_poison_reaches_every_sm(cuda):
+    """The poison kernel launches at the card's largest dynamic shared
+    memory a block may take (227 KiB on Hopper) and reaches every SM."""
+    from gpu_matrix_inversion_tpu_torch.utils import determinism
+    before = determinism.poison_shared_memory.launches
+    sms, smem = determinism.poison_shared_memory(cuda)
+    torch.cuda.synchronize()
+    props = torch.cuda.get_device_properties(cuda)
+    assert sms == props.multi_processor_count
+    assert smem >= 227 * 1024
+    assert determinism.poison_shared_memory.launches == before + 1
+
+
+def test_measure_phases_adds_up_on_card(cuda):
+    """measure_phases(1024): the five keys; the four slots add up to
+    total_compute, the call's device time in the same profiled sessions,
+    within 1%; the pivot slot holds K2's device time in the call (the
+    ranges catch kernels launched through ctypes); total_compute within
+    5% of the call profiled in another session (the profiler's spread
+    between sessions reached 2% on the H100)."""
+    from gpu_matrix_inversion_tpu_torch.benchmarks.phases import (
+        SLOTS, measure_phases)
+    from gpu_matrix_inversion_tpu_torch.ops.blocked import blocked_inverse
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    from gpu_matrix_inversion_tpu_torch.utils.profiling import device_ms
+    got = measure_phases(1024, device=cuda)
+    assert set(got) == {*SLOTS, "total_compute"}
+    assert got["pivot"] > 0 and got["column"] > 0
+    a = torch.from_numpy(hollow_random_matrix(1024, seed=0)).to(cuda)
+    call_ms = device_ms(lambda: blocked_inverse(a, block_size=128, refine=0),
+                        iters=3)
+    k2_ms = device_ms(lambda: blocked_inverse(a, block_size=128, refine=0),
+                      iters=3, name="panel_factor")
+    assert got["pivot"] * 1e3 >= 0.9 * k2_ms
+    total = got["total_compute"]
+    assert abs(sum(got[k] for k in SLOTS) - total) <= 0.01 * total
+    assert abs(total * 1e3 - call_ms) <= 0.05 * call_ms
+
+
+def test_trace_records_cuda_activity(cuda, tmp_path):
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.utils.profiling import trace
+    x = torch.from_numpy(_spd(512, seed=5)).to(cuda)
+    with trace(tmp_path, device=cuda):
+        inverse(x, method="blocked")
+    files = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    import json
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("panel_factor" in k for k in kernels)
+
+
+def test_device_ms_reads_every_launch(cuda):
+    """device_ms brackets its session with marker kernels, so the record
+    the profiler can lose at a session's edge is a marker's: ten 4096^3
+    FP32 GEMMs read within 2% of CUDA events (one lost GEMM record would
+    read 10% low)."""
+    from gpu_matrix_inversion_tpu_torch.utils.precision import (
+        matmul_precision)
+    from gpu_matrix_inversion_tpu_torch.utils.profiling import (
+        device_ms, events_ms)
+    g = torch.randn(4096, 4096, device=cuda)
+    with matmul_precision("highest"):
+        ev = events_ms(lambda: g @ g, iters=10)
+        dv = device_ms(lambda: g @ g, iters=10)
+    assert dv is not None and abs(dv - ev) <= 0.02 * ev

@@ -267,8 +267,8 @@ def test_solve_matches_jax(method, n, dtype, refine):
 
 def test_solve_routes_and_vector_rhs(monkeypatch):
     """``auto`` takes the LU route from n = 512 (solver.py:186) and the
-    inverse below; a vector right-hand side comes back a vector;
-    ``method="cholesky"`` is not ported and raises."""
+    inverse below; a vector right-hand side comes back a vector, on the
+    ``method="cholesky"`` route too."""
     calls = []
     real = tlu.lu_factor_blocked
     monkeypatch.setattr(tlu, "lu_factor_blocked",
@@ -281,8 +281,8 @@ def test_solve_routes_and_vector_rhs(monkeypatch):
         assert x.shape == (n,) and bool(ok)
         assert bool(calls) == lu_route
         assert _rel(x, np.linalg.solve(a, b)) <= 1e-9
-    with pytest.raises(NotImplementedError):
-        tmi.solve(torch.eye(8), torch.ones(8), method="cholesky")
+    x, ok = tmi.solve(4 * torch.eye(8), torch.ones(8), method="cholesky")
+    assert bool(ok) and torch.equal(x, torch.full((8,), 0.25))
 
 
 @pytest.mark.parametrize("n,dtype", [(600, "float64"), (20000, "float32")])

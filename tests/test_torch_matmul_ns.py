@@ -319,7 +319,8 @@ def test_inverter_matches_jax(method):
 
 def test_inverter_config_and_solve():
     """A config object with overrides; solve threads pivot, block_size and
-    refine_iters (tests/test_solver.py's case); cholesky still raises."""
+    refine_iters (tests/test_solver.py's case); the cholesky route inverts
+    an SPD matrix, and sharded, not ported yet, raises."""
     n = 96
     a = hollow_random_matrix(n, seed=300, dtype=np.float64) + np.eye(n) * 1e3
     b = np.random.default_rng(1).standard_normal((n, 2))
@@ -331,7 +332,12 @@ def test_inverter_config_and_solve():
     assert bool(ok.all())
     np.testing.assert_allclose(x.numpy(), np.linalg.solve(a, b), rtol=1e-8,
                                atol=1e-9)
+    spd = a @ a.T
+    x, ok = tmi.Inverter(dtype="float64", method="cholesky",
+                         device="cpu").inverse(spd)
+    assert bool(ok)
+    np.testing.assert_allclose(x.numpy() @ spd, np.eye(n), atol=1e-9)
     with pytest.raises(NotImplementedError):
-        tmi.Inverter(method="cholesky", device="cpu").inverse(a)
+        tmi.Inverter(method="sharded", device="cpu").inverse(a)
     with pytest.raises(ValueError):
         tmi.Inverter(method="nope", device="cpu")

@@ -164,3 +164,37 @@ def test_device_ms_profiles_again_then_reports_not_measured(monkeypatch):
     calls = []
     assert profiling.device_ms(lambda: calls.append(1), iters=2) is None
     assert len(calls) == 1 + 3 * 2
+
+
+@pytest.mark.parametrize("module", ["", ".ops", ".utils"])
+def test_exports_hold_the_jax_lists(module):
+    """The port's ``__all__`` lists hold the JAX package's (nothing listed
+    there is left to port: the sharded route is no export); each name
+    resolves."""
+    import importlib
+    want = importlib.import_module("gpu_matrix_inversion_tpu" + module)
+    got = importlib.import_module("gpu_matrix_inversion_tpu_torch" + module)
+    assert set(want.__all__) <= set(got.__all__)
+    for name in got.__all__:
+        assert getattr(got, name) is not None
+
+
+def test_bracketed_markers_only_on_a_card(monkeypatch):
+    """The marker kernels launch only on a CUDA device that exists; their
+    records are told apart by name."""
+    from gpu_matrix_inversion_tpu_torch.utils import profiling
+    launched = []
+    monkeypatch.setattr(torch.cuda, "_sleep", launched.append)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with profiling.bracketed("cuda"):
+        pass
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with profiling.bracketed("cpu"):
+        pass
+    assert launched == []
+    with profiling.bracketed("cuda"):
+        launched.append("body")
+    assert launched == [1, "body", 1]
+    assert profiling.is_marker("at::cuda::(anonymous namespace)::"
+                               "spin_kernel(long)")
+    assert not profiling.is_marker("panel_factor_cluster_kernel")
