@@ -47,6 +47,14 @@ every route, after a control that must drift), and the host layer in
 phase 7 (potri under both product schedules beside its bound and the
 library's, ``measure_phases(4096)``, the sweep CLI's rows, and CUDA events
 against the profiler's device time on one GEMM, K7 and the blocked call).
+The ninth slice added the sharded route (phase 5j: a world of one rank
+over NCCL and a 1-D cuda mesh; ``sharded_blocked_inverse`` at 4096^2 (K2)
+and 20000^2 (K3 + K4) bit for bit ``blocked_inverse`` at the same group
+size, ``inverse`` with a mesh routing 32768^2 to ``sharded`` (refined,
+its peak memory printed), the dp-only batch bit for bit ``fused_inverse``
+(K1) and a batch through the panel body (K2); the sharded calls in phase
+6's race check; phase 7 times them beside the blocked route at the same
+group size, with the NCCL kernels' share of device time).
 Each path runs with the kernels' launch counts zeroed just before it and
 read just after, and must have launched its kernels. It checks residual
 gates, repeat-run determinism, and times the kernels beside their twins,
@@ -71,6 +79,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def fail(msg: str) -> None:
@@ -205,10 +214,14 @@ def main() -> None:
     from gpu_matrix_inversion_tpu_torch.benchmarks.phases import (
         SLOTS, measure_phases)
     from gpu_matrix_inversion_tpu_torch.benchmarks.sweep import sweep_cuda
+    from gpu_matrix_inversion_tpu_torch.models import solver
     from gpu_matrix_inversion_tpu_torch.models.newton_schulz import (
         newton_schulz_inverse)
     from gpu_matrix_inversion_tpu_torch.ops import (blocked, cholesky, fused,
                                                     lockstep, lu, matmul)
+    from gpu_matrix_inversion_tpu_torch.parallel import (
+        launch, make_device_mesh, sharded, sharded_batched_inverse,
+        sharded_blocked_inverse)
     from gpu_matrix_inversion_tpu_torch.utils import (cuda_build, determinism,
                                                       profiling)
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
@@ -1051,6 +1064,122 @@ def main() -> None:
           "Inverter cholesky refine_iters=1: ok, residual <= 1e-6")
     del junk, xb8, inv_b8, bad, x_c, x_cj, x_ic, a64c, x64c, inv_4k
 
+    # ---- phase 5j: the sharded route --------------------------------------
+    # A world of one rank over NCCL (a FileStore in a temporary directory)
+    # and a 1-D cuda mesh; either failing fails the run (no gloo, no
+    # single-card fallback). At world size 1 every operation of the sharded
+    # body is the blocked route's own, so each call is held bit for bit to
+    # blocked_inverse at the same group size (the sharded default is
+    # gw ~ 1536, the blocked one gw ~ 1024). Gates: refined residual
+    # <= 1e-6, as at 4096^2 and 20000^2; collectives one per group plus the
+    # slot gather and the ok reduction. Then auto at its own gate (32768^2
+    # with a mesh -> sharded), the dp-only batch (K1) and the batched panel
+    # body (K2).
+    phase("phase 5j: sharded route (NCCL world of one, 1-D cuda mesh)")
+    nccl_world = contextlib.ExitStack()
+    nccl_world.enter_context(launch.world("nccl"))
+    mesh = make_device_mesh(1, ("x",))
+    mesh11 = make_device_mesh((1, 1), ("dp", "tp"))
+    check(dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+          and mesh11.device_type == "cuda",
+          "NCCL world of one rank, 1-D and (1, 1) cuda meshes")
+
+    def sharded_path(name, fn, expect, collectives=None):
+        """Run one call with the launch and collective counts zeroed."""
+        zero_counts()
+        sharded.collective.calls = 0
+        out = fn()
+        counts = read_counts(name, expect)
+        log(f"  collectives on {name}: {sharded.collective.calls}")
+        if collectives is not None:
+            check(sharded.collective.calls == collectives,
+                  f"{name}: {collectives} collectives (a strip a group, "
+                  f"the slot gather, the ok reduction)")
+        return out, counts
+
+    (sh4k, ok_sh4k), counts_sh4k = sharded_path(
+        "sharded 4096^2 (b = 128, group 12)",
+        lambda: sharded_blocked_inverse(x4k, mesh=mesh), ("K2",), 3 + 2)
+    bl4k, ok_bl4k = blocked.blocked_inverse(x4k, block_size=128,
+                                            group_size=12)
+    r_sh4k = relative_residual(a4k, sh4k.cpu().numpy())
+    log(f"  sharded 4096^2: refined residual {r_sh4k:.3e}")
+    check(bool(ok_sh4k) and bool(ok_bl4k) and bits_equal(sh4k, bl4k),
+          "sharded 4096^2 bit-identical to blocked_inverse(group_size=12)")
+    check(r_sh4k <= 1e-6, "sharded 4096^2 refined residual <= 1e-6")
+    del sh4k, bl4k
+    (sh20, ok_sh20), counts_sh20 = sharded_path(
+        "sharded 20000^2 (b = 64, group 24)",
+        lambda: sharded_blocked_inverse(x20, mesh=mesh), ("K3", "K4"),
+        14 + 2)
+    bl20, ok_bl20 = blocked.blocked_inverse(x20, group_size=24)
+    r_sh20 = float(batched_residual(x20, sh20))
+    log(f"  sharded 20000^2: refined residual {r_sh20:.3e}")
+    check(bool(ok_sh20) and bool(ok_bl20) and bits_equal(sh20, bl20),
+          "sharded 20000^2 bit-identical to blocked_inverse(group_size=24)")
+    check(r_sh20 <= 1e-6, "sharded 20000^2 refined residual <= 1e-6")
+    del sh20, bl20
+    torch.cuda.empty_cache()
+
+    # auto at its own gate: a single 32768^2 matrix with a mesh -> sharded
+    # (b = 64, group 24: 21 groups and a tail of 8, 512 panels). Residual
+    # in float64 on the card, a column chunk at a time.
+    n32 = 32768
+    x32 = torch.from_numpy(hollow_random_matrix(n32, seed=n32)).to(dev)
+    check(solver._resolve("auto", x32, mesh) == "sharded",
+          "auto routes 32768^2 with a mesh to sharded")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    live32 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    (inv32, ok32), counts_32 = sharded_path(
+        "inverse(x, mesh=mesh) 32768^2", lambda: inverse(x32, mesh=mesh),
+        ("K3", "K4"), 22 + 2)
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t0
+    peak32 = torch.cuda.max_memory_allocated(dev)
+    a64 = x32.double()
+    sq = 0.0
+    for j in range(0, n32, 4096):
+        blk = a64 @ inv32[:, j:j + 4096].double()
+        blk[j:j + 4096].diagonal().sub_(1.0)
+        sq += float((blk * blk).sum())
+    del a64, blk
+    r32 = sq ** 0.5 / (
+        float(torch.linalg.vector_norm(x32, dtype=torch.float64))
+        * float(torch.linalg.vector_norm(inv32, dtype=torch.float64)))
+    log(f"  32768^2 through auto: refined residual {r32:.3e}, "
+        f"{t32:.2f} s host clock (first call); peak device memory "
+        f"{peak32 / 1e9:.3f} GB (torch.cuda.max_memory_allocated), "
+        f"{(peak32 - live32) / 1e9:.3f} GB above the {live32 / 1e9:.3f} GB "
+        f"live before the call   [{card}]")
+    check(counts_32["K3"] == 512 and counts_32["K4"] == 512,
+          "32768^2: 512 K3 and 512 K4 launches")
+    check(bool(ok32) and r32 <= 1e-6, "32768^2 refined residual <= 1e-6")
+    del inv32
+    torch.cuda.empty_cache()
+
+    # dp-only (1, 1) mesh, n <= 640: K1 on the local batch.
+    (shb, ok_shb), counts_shb = sharded_path(
+        "sharded_batched_inverse (4096, 128^2) on (1, 1)",
+        lambda: sharded_batched_inverse(xb, mesh=mesh11), ("K1",))
+    fb, ok_fb = fused.fused_inverse(xb)
+    check(bits_equal(shb, fb) and torch.equal(ok_shb, ok_fb)
+          and bool(ok_shb.all()),
+          "dp-only (4096, 128^2) bit-identical to fused_inverse, all ok")
+    del shb, fb
+    # The batched panel body: (4, 1024^2) on (1, 1), group 8.
+    x4b = lockstep_in[(16, 1024)][:4]
+    (shp, ok_shp), _ = sharded_path(
+        "sharded_batched_inverse (4, 1024^2) on (1, 1)",
+        lambda: sharded_batched_inverse(x4b, mesh=mesh11), ("K2",))
+    blp, ok_blp = blocked.blocked_inverse(x4b, block_size=128, group_size=8,
+                                          refine=0)
+    check(bits_equal(shp, blp) and bool(ok_shp.all()) and bool(ok_blp.all()),
+          "(4, 1024^2) panel body bit-identical to blocked_inverse("
+          "group_size=8, refine=0)")
+    del shp, blp
+
     # ---- phase 6: determinism --------------------------------------------
     # check_deterministic (utils/determinism.py) with perturb=True: before
     # every run after the first, every free block of the caching allocator
@@ -1121,6 +1250,10 @@ def main() -> None:
         ("lockstep (16, 1024^2)", lockstep_inverse, 3),
         ("ns 4096^2", lambda: inverse(xwc, method="ns"), 3),
         ("Cholesky potri 4096^2", lambda: cholesky_inverse(spd4k), 3),
+        ("sharded 4096^2 (NCCL, 1-D mesh)",
+         lambda: sharded_blocked_inverse(x4k, mesh=mesh), 3),
+        ("sharded dp-only (4096, 128^2) (NCCL, (1, 1) mesh)",
+         lambda: sharded_batched_inverse(xb, mesh=mesh11), 3),
     ]
     shared_before = determinism.poison_shared_memory.launches
     for name, fn, runs in det_cases:
@@ -1476,6 +1609,42 @@ def main() -> None:
                 f"{count}x {key[:70]}" for key, count in seen))
     log(f"  clocks after: {smi_state()}")
     del ga
+
+    # The ninth slice's timings, each line with the card's name and power
+    # limit: the sharded calls at world size 1 (NCCL) beside the blocked
+    # route at the same group size, by CUDA events (after a warm-up) and by
+    # the profiler's device time in one session, with the idle share and
+    # the NCCL kernels' share of the device time.
+    # A call whose device time the profiler loses fails the run: these
+    # are the numbers the slice reports.
+    def time_call(name, fn, iters):
+        ev = events_ms(fn, iters=iters)
+        try:
+            rows = device_kernels(lambda: [fn() for _ in range(iters)])
+        except profiling.NoDeviceTime as exc:
+            fail(f"{name}: {exc}")
+        dv = sum(ms for _, _, ms in rows) / iters
+        nccl = sum(ms for key, _, ms in rows
+                   if "nccl" in key.lower()) / iters
+        log(f"  {name}: {ev:.4f} ms events, {dv:.4f} ms device, idle "
+            f"share {1 - dv / ev:.4f}, NCCL kernels {nccl:.4f} ms "
+            f"({nccl / dv:.4f} of device time)   [{card}]")
+        for key, count, ms in rows[:6]:
+            log(f"    {ms / iters:10.4f} ms  {count // iters:5d}x  {key[:90]}")
+        times[f"{name.split()[0]}_ms"] = ev
+        times[f"{name.split()[0]}_device_ms"] = dv
+        times[f"{name.split()[0]}_nccl_device_ms"] = nccl
+
+    time_call("sharded_4096 (NCCL world of one, group 12)",
+              lambda: sharded_blocked_inverse(x4k, mesh=mesh), 5)
+    time_call("blocked_4096_group12",
+              lambda: blocked.blocked_inverse(x4k, block_size=128,
+                                              group_size=12), 5)
+    time_call("sharded_32768 (inverse with a mesh, group 24)",
+              lambda: inverse(x32, mesh=mesh), 1)
+    time_call("blocked_32768_group24",
+              lambda: blocked.blocked_inverse(x32, group_size=24), 1)
+    del x32
     rates = {
         "k1_batch4096_inv_per_s": 4096 / (times["k1_batch4096_ms"] / 1e3),
         "k1_twin_batch4096_inv_per_s":
@@ -1569,6 +1738,8 @@ def main() -> None:
          "bound_ms_1x256": k1_one[0], "bound_by_1x256": k1_one[1],
          "cluster_1x256": clusters["K1 (1, 256^2)"],
          "matrix_inv_32_n256_ms": times["matrix_inv_32_n256_ms"],
+         # The dp-only sharded batch (4096, 128^2) on a (1, 1) mesh.
+         "launches_sharded_dp_only": counts_shb["K1"],
          "peak_mb_inverse_512x256": peak["batch512_n256"],
          "peak_mb_inverse_64x640": peak["batch64_n640"]},
         # No PyTorch call computes a panel's pivot rows and C^T (K2) or a
@@ -1578,7 +1749,8 @@ def main() -> None:
                   times["k2_twin_panel_4096_ms"], None),
          "kernel_device_ms": times["k2_panel_4096_device_ms"],
          "cluster": clusters["K2 (4096, 128)"],
-         "us_per_pivot_step": rates["k2_us_per_pivot_step"]},
+         "us_per_pivot_step": rates["k2_us_per_pivot_step"],
+         "launches_sharded_4096": counts_sh4k["K2"]},
         # K3's record is (20032, 64) bf16 (the split path's panel);
         # (4096, 128) fp32 (the LU route's) in the *_4096_fp32 keys.
         {**record("K3 pivot_search", "panel_factor.cu", "blocked.py:556",
@@ -1594,7 +1766,9 @@ def main() -> None:
          "bound_ms_4096_fp32": k3_fp32[0], "bound_by_4096_fp32": k3_fp32[1],
          "cluster_4096_fp32": clusters["K3 (4096, 128) fp32"],
          "us_per_pivot_step_4096_fp32":
-             rates["k3_us_per_pivot_step_4096_fp32"]},
+             rates["k3_us_per_pivot_step_4096_fp32"],
+         "launches_sharded_20000": counts_sh20["K3"],
+         "launches_sharded_32768": counts_32["K3"]},
         # K4's record is b = 64 (the split path's block); b = 128 (the
         # bf16-search call's) in the *_b128 keys.
         {**record("K4 small_inv", "small_inv.cu", "blocked.py:642",
@@ -1607,7 +1781,9 @@ def main() -> None:
          "bound_ms_b128": k4_128[0], "bound_by_b128": k4_128[1],
          "library_ms_b128": times["k4_library_inv_b128_ms"],
          "kernel_device_ms_b128": times["k4_b128_device_ms"],
-         "library_device_ms_b128": times["k4_library_inv_b128_device_ms"]},
+         "library_device_ms_b128": times["k4_library_inv_b128_device_ms"],
+         "launches_sharded_20000": counts_sh20["K4"],
+         "launches_sharded_32768": counts_32["K4"]},
         {**record("K5 small_lu", "small_lu.cu", "lu.py:173",
                   counts_lu["K5"], k5_abs, times["k5_b128_ms"],
                   times["k5_twin_b128_ms"],
@@ -1639,6 +1815,7 @@ def main() -> None:
          "bound_ms_bf16": k7_bf16[0], "bound_by_bf16": k7_bf16[1],
          "library_ms_bf16": times["k7_library_matmul_4096_bfloat16_ms"]},
     ]
+    nccl_world.close()
     phase("done")
     print(smi)
     print(json.dumps({"kernels": kernels}))

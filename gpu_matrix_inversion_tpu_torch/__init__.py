@@ -27,11 +27,14 @@ port carries:
 - the host layer: ``check_deterministic`` with on-card poisoning between
   runs (``utils/determinism.py``, ``csrc/poison.cu``), ``trace``
   (``utils/profiling.py``), the per-phase breakdown ``measure_phases``
-  (``benchmarks/phases.py``) and the reference's sweep CLI
-  (``benchmarks/sweep.py``).
-
-One route of the JAX package is left: ``sharded`` (``parallel/``), which
-raises ``NotImplementedError``.
+  (``benchmarks/phases.py``), the reference's sweep CLI
+  (``benchmarks/sweep.py``) and the native host library's bindings
+  (``utils/native.py``);
+- the ``sharded`` route (``parallel/``): the augmented system
+  column-sharded over a ``torch.distributed`` mesh (NCCL on cards, gloo
+  ranks on the CPU), ``make_device_mesh``, ``sharded_blocked_inverse``,
+  ``sharded_batched_inverse``, and ``spawn_ranks`` to start a world on one
+  host.
 
 The kernels are CUDA C++ for ``sm_90a``, built with ``nvcc`` on first use
 (``utils/cuda_build.py``); importing the package builds nothing. Every
@@ -62,6 +65,12 @@ from gpu_matrix_inversion_tpu_torch.ops.lu import (det, invert_triangular,
                                                    slogdet)
 from gpu_matrix_inversion_tpu_torch.models.solver import (Inverter, inverse,
                                                          solve)
+from gpu_matrix_inversion_tpu_torch.parallel import (
+    make_device_mesh,
+    sharded_batched_inverse,
+    sharded_blocked_inverse,
+    spawn_ranks,
+)
 from gpu_matrix_inversion_tpu_torch.utils.config import InversionConfig
 
 __version__ = "0.1.0"
@@ -87,5 +96,9 @@ __all__ = [
     "solve",
     "Inverter",
     "InversionConfig",
+    "make_device_mesh",
+    "sharded_blocked_inverse",
+    "sharded_batched_inverse",
+    "spawn_ranks",
     "__version__",
 ]

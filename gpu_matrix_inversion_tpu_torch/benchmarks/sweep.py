@@ -21,17 +21,29 @@ Usage::
     python -m gpu_matrix_inversion_tpu_torch.benchmarks.sweep \\
         --method auto --max-n 4096 --out sweep_cuda.txt
     python -m gpu_matrix_inversion_tpu_torch.benchmarks.sweep --numpy-baseline
+    torchrun --nproc-per-node 4 -m \\
+        gpu_matrix_inversion_tpu_torch.benchmarks.sweep --method sharded
+
+``--method sharded`` runs over the world ``torchrun`` set up (rank 0
+writes the rows), or over a world of size 1 that the CLI creates when
+there is none.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
+import io
 import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from gpu_matrix_inversion_tpu_torch.parallel.launch import world
 
 
 def reference_sizes(max_n: int, *, coarse_step: int = 1000):
@@ -169,6 +181,31 @@ def sweep_cuda(max_n: int, out, *, method: str = "auto", repeat: int = 3,
         out.flush()
 
 
+@contextlib.contextmanager
+def sharded_world(device="cuda"):
+    """The world ``--method sharded`` runs over: the initialized one, else
+    the one ``torchrun`` describes in the environment (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``), else a world of size 1 over
+    a ``FileStore`` in a temporary directory. NCCL for ``"cuda"``, gloo for
+    ``"cpu"``. A group made here is destroyed on exit."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if "WORLD_SIZE" not in os.environ:
+        with world(backend):
+            yield
+        return
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group(backend,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Matrix-inversion benchmark sweep (reference protocol)")
@@ -178,7 +215,8 @@ def main(argv=None):
                     choices=["auto", "spec", "fused", "blocked", "lu",
                              "cholesky", "ns", "sharded"],
                     help="inversion path (models/solver.py METHODS); "
-                         "'sharded' is not ported yet and raises")
+                         "'sharded' runs over torchrun's world, or a world "
+                         "of size 1 made here")
     ap.add_argument("--repeat", type=int, default=3,
                     help="timed repetitions per size (REP, main_file.cpp:16)")
     ap.add_argument("--out", default="-",
@@ -211,11 +249,17 @@ def main(argv=None):
             sweep_numpy(args.max_n, out, repeat=args.repeat, skip=skip,
                         sizes=sizes)
         else:
-            sweep_cuda(args.max_n, out, method=args.method,
-                       repeat=args.repeat,
-                       dtype=np.float64 if args.fp64 else np.float32,
-                       skip=skip, sizes=sizes, amortize=args.amortize,
-                       strict_verify=args.strict_verify, spd=args.spd)
+            world = (sharded_world() if args.method == "sharded"
+                     else contextlib.nullcontext())
+            with world:
+                # Under torchrun every rank runs the sweep; rank 0 writes.
+                rows = (out if not dist.is_initialized()
+                        or dist.get_rank() == 0 else io.StringIO())
+                sweep_cuda(args.max_n, rows, method=args.method,
+                           repeat=args.repeat,
+                           dtype=np.float64 if args.fp64 else np.float32,
+                           skip=skip, sizes=sizes, amortize=args.amortize,
+                           strict_verify=args.strict_verify, spd=args.spd)
     finally:
         if out is not sys.stdout:
             out.close()

@@ -15,14 +15,17 @@ routes to
                :func:`solve`
 - ``ns``       Newton-Schulz iteration (pivot-free, GEMMs only; well-
                conditioned matrices and warm starts)
+- ``sharded``  panel-sharded over a ``torch.distributed`` mesh
+               (``parallel/``): the same panel kernels on every rank, one
+               collective per panel group
 
 ``auto`` picks by shape with the reference's thresholds, unchanged, so
-both packages take the same route on the same input: batched or small
-fp32/bf16 matrices go to ``fused``, large ones to ``blocked``, small FP64
-ones to ``spec``; :func:`solve` takes the LU route from n = 512; ``auto``
-never picks ``cholesky``. The reference's ``sharded`` route is not ported
-yet and raises ``NotImplementedError``. :class:`Inverter` is the
-config-driven session object.
+both packages take the same route on the same input: a single matrix from
+n = 32768 goes to ``sharded`` when a mesh is passed or the initialized
+world has more than one rank and serves the input's device; batched or small fp32/bf16 matrices go to
+``fused``, large ones to ``blocked``, small FP64 ones to ``spec``;
+:func:`solve` takes the LU route from n = 512; ``auto`` never picks
+``cholesky``. :class:`Inverter` is the config-driven session object.
 """
 
 from __future__ import annotations
@@ -45,22 +48,36 @@ from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
     gauss_jordan_inverse)
 from gpu_matrix_inversion_tpu_torch.ops.refine import (newton_schulz_refine,
                                                        refine_solve)
+from gpu_matrix_inversion_tpu_torch.parallel.mesh import (world_serves,
+                                                          world_size)
 from gpu_matrix_inversion_tpu_torch.utils.config import InversionConfig
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
 
 METHODS = ("auto", "spec", "fused", "blocked", "lu", "cholesky", "sharded",
            "ns")
-_NOT_PORTED = ("sharded",)
 _BLOCKED_MIN_N = 512
+# auto -> sharded capacity gate (solver.py:35-42): from 32768^2 a single
+# matrix goes to the mesh when one is available.
+SHARDED_AUTO_MIN_N = 32768
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _resolve(method: str, a: torch.Tensor) -> str:
-    """The reference's routing (solver.py:56-68) without its multi-chip
-    branch (n >= 32768 with a mesh), which is not ported yet."""
+def _mesh_available(mesh, a: torch.Tensor) -> bool:
+    """A mesh was passed, or the initialized world has more than one rank
+    and its backend serves ``a``'s device (NCCL a card tensor, gloo a CPU
+    one)."""
+    return mesh is not None or (world_size() > 1
+                                and world_serves(a.device.type))
+
+
+def _resolve(method: str, a: torch.Tensor, mesh=None) -> str:
+    """The reference's routing (solver.py:56-68)."""
     if method != "auto":
         return method
     n = a.shape[-1]
+    if (a.ndim == 2 and n >= SHARDED_AUTO_MIN_N
+            and _mesh_available(mesh, a)):
+        return "sharded"
     fits_fused = n <= FUSED_MAX_N and a.dtype in _KERNEL_DTYPES
     if fits_fused and (a.ndim > 2 or n < _BLOCKED_MIN_N):
         return "fused"
@@ -75,15 +92,19 @@ def _symmetrized_lower(a: torch.Tensor) -> torch.Tensor:
 
 
 def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
-            block_size: int | None = None, precision: str | None = None,
-            search_bf16: bool | None = None):
+            block_size: int | None = None, mesh=None,
+            precision: str | None = None, search_bf16: bool | None = None):
     """Invert ``a`` (shape ``(..., n, n)``) on its device; returns
     ``(inverse, ok)``.
 
     ``ok`` is the singularity flag per the reference's empty-on-singular
-    contract (SURVEY.md section 2, C10). ``precision``/``search_bf16``
-    apply to the blocked route; the others ignore them. An empty input
-    ((0, n, n), (k, 0, 0), (0, 0)) raises ``ValueError``.
+    contract (SURVEY.md section 2, C10). ``method="sharded"`` runs the
+    panel-sharded path over ``mesh`` (default: a mesh over the initialized
+    world; none raises ``ValueError``), the result on every rank.
+    ``precision``/``search_bf16`` apply to the blocked and sharded routes
+    (the batched sharded route takes ``precision`` only); the others
+    ignore them. An empty input ((0, n, n), (k, 0, 0), (0, 0)) raises
+    ``ValueError``.
     """
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
@@ -96,10 +117,21 @@ def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
         # One answer on every device and route (the JAX package raises too;
         # K1's launcher refuses an empty batch).
         raise ValueError(f"empty input {tuple(a.shape)}: nothing to invert")
-    resolved = _resolve(method, a)
-    if resolved in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method={resolved!r} is not ported yet (ROADMAP Queue 1)")
+    resolved = _resolve(method, a, mesh)
+    if resolved == "sharded":
+        from gpu_matrix_inversion_tpu_torch.parallel.sharded import (
+            sharded_batched_inverse, sharded_blocked_inverse)
+        kwargs = {} if block_size is None else {"block_size": block_size}
+        if precision is not None:
+            kwargs["precision"] = precision
+        if a.ndim == 2:
+            if search_bf16 is not None:
+                kwargs["search_bf16"] = search_bf16
+            return sharded_blocked_inverse(a, mesh=mesh, pivot=pivot,
+                                           **kwargs)
+        inv, ok = sharded_batched_inverse(a.reshape((-1,) + a.shape[-2:]),
+                                          mesh=mesh, pivot=pivot, **kwargs)
+        return inv.reshape(a.shape), ok.reshape(a.shape[:-2])
     if resolved == "fused":
         # The reference serves method="fused" on dtypes or sizes the kernel
         # does not take with the spec (solver.py:107-112).
@@ -129,7 +161,7 @@ def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
 
 
 def solve(a: torch.Tensor, b: torch.Tensor, *, method: str = "auto",
-          pivot: bool = True, block_size: int | None = None,
+          pivot: bool = True, block_size: int | None = None, mesh=None,
           refine_iters: int = 0):
     """Solve ``A @ x = b`` on ``a``'s device; returns ``(x, ok)``. ``b`` may
     be ``(..., n, k)`` or a single right-hand side ``(..., n)``.
@@ -140,7 +172,8 @@ def solve(a: torch.Tensor, b: torch.Tensor, *, method: str = "auto",
     reusing the factorization or the inverse (O(n^2 k) per iteration).
     ``method="cholesky"`` runs potrf + potrs and never forms the inverse;
     it reads only ``a``'s lower triangle, and refines against that
-    triangle symmetrized.
+    triangle symmetrized. ``mesh`` goes to :func:`inverse` (the sharded
+    route).
     """
     if not isinstance(a, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(a).__name__}")
@@ -176,7 +209,7 @@ def solve(a: torch.Tensor, b: torch.Tensor, *, method: str = "auto",
             x = refine_solve(a, b, x, lu, perm, iters=refine_iters)
     else:
         inv, ok = inverse(a, method=method, pivot=pivot,
-                          block_size=block_size)
+                          block_size=block_size, mesh=mesh)
         with matmul_precision("highest"):
             x = inv @ b
             for _ in range(refine_iters):
@@ -201,17 +234,18 @@ class Inverter:
         x, ok = inv.inverse(a)
 
     A tensor stays on its device; anything else (a numpy array, a list)
-    goes to ``device``, the GPU unless the caller asks for ``"cpu"``. The
-    reference's ``mesh`` argument waits for the sharded route.
+    goes to ``device``, the GPU unless the caller asks for ``"cpu"``.
+    ``mesh`` goes to every call (the sharded route).
     """
 
     def __init__(self, config: InversionConfig | None = None, *,
-                 device="cuda", **overrides):
+                 mesh=None, device="cuda", **overrides):
         if config is None:
             config = InversionConfig.from_env(**overrides)
         elif overrides:
             config = dataclasses.replace(config, **overrides)
         self.config = config.validate()
+        self.mesh = mesh
         self.device = device
 
     def _cast(self, a) -> torch.Tensor:
@@ -227,8 +261,8 @@ class Inverter:
         cfg = self.config
         a = self._cast(a)
         x, ok = inverse(a, method=cfg.method, pivot=cfg.pivot,
-                        block_size=cfg.block_size, precision=cfg.precision,
-                        search_bf16=cfg.search_bf16)
+                        block_size=cfg.block_size, mesh=self.mesh,
+                        precision=cfg.precision, search_bf16=cfg.search_bf16)
         if cfg.refine_iters > 0:
             if cfg.method == "cholesky":
                 # The factor read only the lower triangle: refine against
@@ -245,4 +279,5 @@ class Inverter:
         cfg = self.config
         a = self._cast(a)
         return solve(a, b, method=cfg.method, pivot=cfg.pivot,
-                     block_size=cfg.block_size, refine_iters=cfg.refine_iters)
+                     block_size=cfg.block_size, mesh=self.mesh,
+                     refine_iters=cfg.refine_iters)

@@ -717,19 +717,24 @@ def _group_sizes(m: int, b: int, group_size: int) -> list[int]:
     return [group] * num_groups + ([tail] if tail else [])
 
 
-def _augment(a: torch.Tensor, m: int) -> torch.Tensor:
+def _augment(a: torch.Tensor, m: int, lo: int = 0,
+             hi: int | None = None) -> torch.Tensor:
     """The driver's one (m, 2m) buffer, updated in place throughout. Left
     half: the A working set padded to blockdiag(A, I) (padded rows are
     zero in real columns, so they never win a pivot). Right half: the
     composite-transform columns in PIVOT ORDER (slot t tracks the t-th
     pivot row), deposited as each group finishes, so at the group starting
     at column kb0 the live columns are exactly [kb0+gw, m+kb0) -- one
-    contiguous window of width m-gw."""
+    contiguous window of width m-gw. ``lo``/``hi`` build only its columns
+    [lo, hi): a rank's shard on the sharded route."""
     n = a.shape[-1]
-    aug = torch.zeros((m, 2 * m), dtype=a.dtype, device=a.device)
-    aug[:n, :n] = a
-    pad = torch.arange(n, m, device=a.device)
-    aug[pad, pad] = 1.0
+    hi = 2 * m if hi is None else hi
+    aug = torch.zeros((m, hi - lo), dtype=a.dtype, device=a.device)
+    if lo < n:
+        aug[:n, :min(hi, n) - lo] = a[:, lo:min(hi, n)]
+    if max(lo, n) < min(hi, m):
+        pad = torch.arange(max(lo, n), min(hi, m), device=a.device)
+        aug[pad, pad - lo] = 1.0
     return aug
 
 
@@ -749,26 +754,40 @@ def _apply_group(aug: torch.Tensor, og: torch.Tensor, pivtot: torch.Tensor,
     then the finished O to the group's columns and G to its slots."""
     m = aug.shape[0]
     gw = pivtot.shape[0]
-    # The pivot rows of the window are gathered into their own buffer
-    # first, because the update overwrites them.
+    if m > gw:
+        _update_window(aug, og, pivtot, kb0 + gw, kb0 + m, precision)
+    aug[:, kb0:kb0 + gw] = og[:, :gw]
+    aug[:, m + kb0:m + kb0 + gw] = og[:, gw:]
+
+
+def _update_window(aug: torch.Tensor, og: torch.Tensor,
+                   pivtot: torch.Tensor, lo: int, hi: int,
+                   precision: str) -> None:
+    """The group's composite transform C = G - E^T on ``aug``'s columns
+    [lo, hi) in one rank-gw GEMM, in place. The window's pivot rows are
+    gathered into their own buffer first, because the update overwrites
+    them."""
+    gw = pivtot.shape[0]
     rows = pivtot.long()
     c = og[:, gw:].clone()
     c[rows, torch.arange(gw, device=aug.device)] -= 1.0
-    if m > gw:
-        win = aug[:, kb0 + gw:kb0 + m]
-        _update(win, c, win.index_select(0, rows), precision)
-    aug[:, kb0:kb0 + gw] = og[:, :gw]
-    aug[:, m + kb0:m + kb0 + gw] = og[:, gw:]
+    win = aug[:, lo:hi]
+    _update(win, c, win.index_select(0, rows), precision)
 
 
 def _unpermute(aug: torch.Tensor, pos: torch.Tensor, n: int) -> torch.Tensor:
     """Undo the logical permutation once: slot t is inverse column pos[t]
     and inverse row g lives at row pos[g]."""
-    m = aug.shape[0]
+    return _unpermute_slots(aug[:, aug.shape[0]:], pos, n)
+
+
+def _unpermute_slots(slots: torch.Tensor, pos: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """:func:`_unpermute` of the (m, m) slot half alone."""
     rows = pos.long()
     invpos = torch.empty_like(rows)
-    invpos[rows] = torch.arange(m, device=aug.device)
-    return aug[:, m:].index_select(1, invpos).index_select(0, rows)[:n, :n]
+    invpos[rows] = torch.arange(slots.shape[0], device=slots.device)
+    return slots.index_select(1, invpos).index_select(0, rows)[:n, :n]
 
 
 def _blocked_gj(a: torch.Tensor, *, pivot: bool, b: int, group_size: int,

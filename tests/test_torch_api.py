@@ -210,11 +210,12 @@ def test_auto_routes_past_the_first_slice_like_jax(n, dtype):
 
 @pytest.mark.parametrize("method", ["cholesky", "sharded"])
 def test_unported_methods_raise(method):
-    """``sharded`` is the one route not ported yet, and raises; the
-    ``cholesky`` case stays to pin that the route, ported since, no longer
-    raises (potri of I is I, exactly)."""
+    """Both routes are ported now. ``sharded`` without a mesh and without
+    an initialized ``torch.distributed`` world raises ``ValueError`` (it
+    never runs on one device on the quiet; ``test_torch_sharded.py`` runs
+    it on gloo ranks); ``cholesky`` inverts (potri of I is I, exactly)."""
     if method == "sharded":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="process group"):
             tmi.inverse(torch.eye(8), method=method)
     else:
         inv, ok = tmi.inverse(torch.eye(8), method=method)

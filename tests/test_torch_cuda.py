@@ -711,3 +711,126 @@ def test_device_ms_reads_every_launch(cuda):
         ev = events_ms(lambda: g @ g, iters=10)
         dv = device_ms(lambda: g @ g, iters=10)
     assert dv is not None and abs(dv - ev) <= 0.02 * ev
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A world of one rank over NCCL (a FileStore in a temporary
+    directory); destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from gpu_matrix_inversion_tpu_torch.parallel.launch import world
+    with world("nccl", timeout=300):
+        yield dist
+
+
+def test_sharded_4096_equals_blocked_bit_for_bit(cuda, nccl_world):
+    """World size 1 over NCCL at the production geometry (b = 128,
+    group 12: 3 groups): every operation is the blocked route's, so the
+    refined result is bit for bit ``blocked_inverse`` at group 12; K2 runs,
+    and 5 collectives (3 strips, the slot gather, the ok reduction)."""
+    from gpu_matrix_inversion_tpu_torch.parallel import (
+        make_device_mesh, sharded, sharded_blocked_inverse)
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    from gpu_matrix_inversion_tpu_torch.utils.residual import (
+        relative_residual)
+    mesh = make_device_mesh(1, ("x",))
+    assert mesh.device_type == "cuda" and nccl_world.get_backend() == "nccl"
+    a = hollow_random_matrix(4096, seed=1)
+    x = torch.from_numpy(a).to(cuda)
+    k2, calls = blocked.panel_factor.launches, sharded.collective.calls
+    inv, ok = sharded_blocked_inverse(x, mesh=mesh)
+    assert blocked.panel_factor.launches - k2 == 32
+    assert sharded.collective.calls - calls == 5
+    want, ok_b = blocked.blocked_inverse(x, block_size=128, group_size=12)
+    assert bool(ok) and bool(ok_b)
+    assert torch.equal(inv.view(torch.int32), want.view(torch.int32))
+    assert relative_residual(a, inv.cpu().numpy()) <= 1e-6
+
+
+def test_sharded_dp_only_batch_equals_fused(cuda, nccl_world):
+    """A (1, 1) (dp, tp) cuda mesh with n <= 640 runs K1 on the local
+    batch: bit for bit ``fused_inverse``; a singular member's ok alone
+    false."""
+    from gpu_matrix_inversion_tpu_torch.parallel import (
+        make_device_mesh, sharded_batched_inverse)
+    mesh = make_device_mesh((1, 1), ("dp", "tp"))
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((64, 128, 128)).astype(
+        np.float32)).to(cuda)
+    x[5] = 1.0
+    k1 = fused.gj_kernel.launches
+    inv, ok = sharded_batched_inverse(x, mesh=mesh)
+    assert fused.gj_kernel.launches - k1 == 1
+    want, ok_f = fused.fused_inverse(x)
+    assert torch.equal(inv.view(torch.int32), want.view(torch.int32))
+    assert ok.tolist() == ok_f.tolist() and ok.tolist().count(False) == 1
+
+
+def test_inverse_method_sharded_on_a_cuda_mesh(cuda, nccl_world):
+    """``inverse(method="sharded", mesh=)`` and ``Inverter(mesh=)`` on a
+    cuda mesh: the sharded call's result, under the refined gate; a batch
+    goes through the panel body, bit for bit the raw blocked route."""
+    from gpu_matrix_inversion_tpu_torch import Inverter, inverse
+    from gpu_matrix_inversion_tpu_torch.parallel import (
+        make_device_mesh, sharded_blocked_inverse)
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    from gpu_matrix_inversion_tpu_torch.utils.residual import (
+        relative_residual)
+    mesh = make_device_mesh(1, ("x",))
+    a = hollow_random_matrix(1024, seed=9)
+    x = torch.from_numpy(a).to(cuda)
+    inv, ok = inverse(x, method="sharded", mesh=mesh)
+    want, _ = sharded_blocked_inverse(x, mesh=mesh)
+    assert bool(ok) and torch.equal(inv, want)
+    assert relative_residual(a, inv.cpu().numpy()) <= 1e-6
+    inv2, ok2 = Inverter(method="sharded", mesh=mesh).inverse(a)
+    assert bool(ok2) and inv2.device.type == "cuda"
+    mesh2 = make_device_mesh((1, 1), ("dp", "tp"))
+    batch = torch.stack([x, x.t().contiguous()])
+    invb, okb = inverse(batch, method="sharded", mesh=mesh2)
+    wantb, _ = blocked.blocked_inverse(batch, block_size=128, group_size=8,
+                                       refine=0)
+    assert bool(okb.all())
+    assert torch.equal(invb.view(torch.int32), wantb.view(torch.int32))
+
+
+def test_sharded_input_and_mesh_share_a_device(cuda, nccl_world):
+    """The sharded route never moves its input: a CPU tensor with a cuda
+    mesh (``solve`` included), or with no mesh under an NCCL world, raises
+    ValueError; a card tensor with no mesh runs on a mesh of the world on
+    its own device."""
+    from gpu_matrix_inversion_tpu_torch import solve
+    from gpu_matrix_inversion_tpu_torch.parallel import (
+        make_device_mesh, sharded_blocked_inverse)
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    mesh = make_device_mesh(1, ("x",))
+    a = torch.from_numpy(hollow_random_matrix(256, seed=3))
+    with pytest.raises(ValueError, match="mesh"):
+        solve(a, torch.ones(256), method="sharded", mesh=mesh)
+    with pytest.raises(ValueError, match="does not serve"):
+        sharded_blocked_inverse(a)
+    inv, ok = sharded_blocked_inverse(a.to(cuda))
+    want, _ = sharded_blocked_inverse(a.to(cuda), mesh=mesh)
+    assert bool(ok) and inv.device == cuda and torch.equal(inv, want)
+
+
+def test_multichip_example_on_the_cards(cuda):
+    """``examples/torch_04_multichip.py`` with no argument and no torchrun
+    spawns one NCCL rank per card (``spawn_ranks``' cuda branch): world
+    size 1 on one card, the dp x tp call on a (1, 1) mesh."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, os.path.join(repo, "examples",
+                                      "torch_04_multichip.py")],
+        capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert f"world of {torch.cuda.device_count()} cuda ranks" in r.stdout
+    assert "sharded ok: True" in r.stdout and "dp x tp ok: True" in r.stdout

@@ -320,7 +320,7 @@ def test_inverter_matches_jax(method):
 def test_inverter_config_and_solve():
     """A config object with overrides; solve threads pivot, block_size and
     refine_iters (tests/test_solver.py's case); the cholesky route inverts
-    an SPD matrix, and sharded, not ported yet, raises."""
+    an SPD matrix, and sharded, without a mesh or a world, raises."""
     n = 96
     a = hollow_random_matrix(n, seed=300, dtype=np.float64) + np.eye(n) * 1e3
     b = np.random.default_rng(1).standard_normal((n, 2))
@@ -337,7 +337,7 @@ def test_inverter_config_and_solve():
                          device="cpu").inverse(spd)
     assert bool(ok)
     np.testing.assert_allclose(x.numpy() @ spd, np.eye(n), atol=1e-9)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         tmi.Inverter(method="sharded", device="cpu").inverse(a)
     with pytest.raises(ValueError):
         tmi.Inverter(method="nope", device="cpu")

@@ -53,13 +53,30 @@ def test_device_sweep_rows():
 
 
 def test_device_sweep_sharded_method_raises():
-    """--method sharded reaches the solver, whose sharded route is not
-    ported yet: NotImplementedError, no row."""
+    """sweep_cuda with method="sharded" reaches the solver, whose sharded
+    route needs a world (the CLI makes one, ``sharded_world``): without
+    one, ValueError and no row."""
     out = io.StringIO()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         sweep_cuda(0, out, method="sharded", repeat=1, sizes=[64],
                    device="cpu")
     assert out.getvalue() == ""
+
+
+def test_sharded_world_runs_the_sharded_sweep():
+    """The world the CLI makes for --method sharded when there is none: a
+    world of one rank (gloo for the CPU here, NCCL on the card), in which
+    the sharded route runs and writes its row; destroyed on exit."""
+    import torch.distributed as dist
+    from gpu_matrix_inversion_tpu_torch.benchmarks.sweep import sharded_world
+    out = io.StringIO()
+    with sharded_world("cpu"):
+        assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+        sweep_cuda(0, out, method="sharded", repeat=1, sizes=[64],
+                   device="cpu")
+    assert not dist.is_initialized()
+    cols = out.getvalue().split()
+    assert int(cols[0]) == 64 and len(cols) == 8 and float(cols[7]) < 1e-5
 
 
 def test_device_sweep_amortized_and_strict_columns():

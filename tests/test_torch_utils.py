@@ -168,8 +168,7 @@ def test_device_ms_profiles_again_then_reports_not_measured(monkeypatch):
 
 @pytest.mark.parametrize("module", ["", ".ops", ".utils"])
 def test_exports_hold_the_jax_lists(module):
-    """The port's ``__all__`` lists hold the JAX package's (nothing listed
-    there is left to port: the sharded route is no export); each name
+    """The port's ``__all__`` lists hold the JAX package's; each name
     resolves."""
     import importlib
     want = importlib.import_module("gpu_matrix_inversion_tpu" + module)
