@@ -54,12 +54,25 @@ size, ``inverse`` with a mesh routing 32768^2 to ``sharded`` (refined,
 its peak memory printed), the dp-only batch bit for bit ``fused_inverse``
 (K1) and a batch through the panel body (K2); the sharded calls in phase
 6's race check; phase 7 times them beside the blocked route at the same
-group size, with the NCCL kernels' share of device time).
-Each path runs with the kernels' launch counts zeroed just before it and
-read just after, and must have launched its kernels. It checks residual
-gates, repeat-run determinism, and times the kernels beside their twins,
-their bounds and the library call that computes the same function, where
-there is one. Any
+group size, with the NCCL kernels' share of device time). The tenth slice
+made the routes compiled (``utils/graphs.py``: one CUDA graph per static
+signature, captured once and replayed, as the JAX package runs one
+``jax.jit`` program per signature), so every route call on the card below
+runs a graph unless it is under ``graphs.disabled()``; phase 6's race check
+holds its first, eager run to the replays; phase 8 runs each compiled route
+eagerly, at its first call and replayed, bit for bit, a replay running the
+port's kernels as the eager call does by the profiler's records, an A, B, A
+replay that leaves a held result unchanged, the first call's parts, the
+idle shares that set the graphs' size gate, and what the cache holds after
+the sweep's sizes.
+Each path runs with the kernels' launch counts zeroed and the graph cache
+emptied just before it, and the counts read just after: it must have
+launched its kernels. The wrappers count launches from the host, so a
+compiled call counts its first call's eager warm-up; a replay runs no
+wrapper, and phases 5f and 8 count its kernels from the graph's nodes and
+the profiler. It checks residual gates, repeat-run determinism, and times
+the kernels beside their twins, their bounds and the library call that
+computes the same function, where there is one. Any
 failed check exits nonzero; nothing is caught and passed over. Each
 phase prints its seconds. The second-to-last line of stdout is the
 kernels' JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -213,7 +226,8 @@ def main() -> None:
         slogdet, solve)
     from gpu_matrix_inversion_tpu_torch.benchmarks.phases import (
         SLOTS, measure_phases)
-    from gpu_matrix_inversion_tpu_torch.benchmarks.sweep import sweep_cuda
+    from gpu_matrix_inversion_tpu_torch.benchmarks.sweep import (
+        reference_sizes, sweep_cuda)
     from gpu_matrix_inversion_tpu_torch.models import solver
     from gpu_matrix_inversion_tpu_torch.models.newton_schulz import (
         newton_schulz_inverse)
@@ -223,7 +237,7 @@ def main() -> None:
         launch, make_device_mesh, sharded, sharded_batched_inverse,
         sharded_blocked_inverse)
     from gpu_matrix_inversion_tpu_torch.utils import (cuda_build, determinism,
-                                                      profiling)
+                                                      graphs, profiling)
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
         hollow_random_matrix, well_conditioned_matrix)
     from gpu_matrix_inversion_tpu_torch.utils.precision import (
@@ -231,7 +245,7 @@ def main() -> None:
     # events_ms: CUDA events around the calls, after a warm-up; device_ms:
     # the profiler's device time, None ("not measured") if it saw none.
     from gpu_matrix_inversion_tpu_torch.utils.profiling import (
-        device_kernels, device_ms, events_ms)
+        device_kernels, device_ms, events_ms, kernel_launches)
     from gpu_matrix_inversion_tpu_torch.utils.residual import (
         relative_residual)
 
@@ -241,8 +255,14 @@ def main() -> None:
                 "K7": matmul.tiled_matmul}
 
     def zero_counts() -> None:
+        """Zero the launch counts, and drop the compiled routes' graphs:
+        each path's compiled calls then start with a first call, whose
+        eager warm-up launches the kernels the wrappers count (a replay
+        runs no wrapper; phases 5f and 8 read a replay's kernels from
+        the profiler's records)."""
         for fn in wrappers.values():
             fn.launches = 0
+        graphs.clear()
         blocked._plans.clear()    # so read_counts sees this path's clusters
 
     def read_counts(path: str, expect: tuple[str, ...]) -> dict:
@@ -255,6 +275,18 @@ def main() -> None:
         for k in expect:
             check(counts[k] > 0, f"{k} launched on {path}")
         return counts
+
+    def hold_records(what: str, got: dict, want: dict) -> None:
+        """The profiler's records of the port's kernels (``got``, from
+        profiling.kernel_launches) held to an exact count ``want`` (the
+        wrappers' eager launches, or a graph's kernel nodes). The profiler
+        can drop a record (one of 256 K2 launches in an eager session, one
+        of FP64's 16 K3 in a replay) and never adds one: no kernel may show
+        more often than ``want``, and a shortfall is printed."""
+        if any(n > want.get(k, 0) for k, n in got.items()):
+            fail(f"{what}: the profiler recorded {got}, more than {want}")
+        if got != want:
+            log(f"  {what}: the profiler recorded {got} of {want}")
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -409,11 +441,13 @@ def main() -> None:
         return p, ct, bool(ok)
 
     def at_cluster_8(fn):
-        """fn() with the panel kernels' clusters capped at 8 CTAs."""
+        """fn() with the panel kernels' clusters capped at 8 CTAs, eagerly
+        (a compiled route would capture a graph for the cap)."""
         cap = blocked.MAX_CLUSTER
         blocked.MAX_CLUSTER = 8
         try:
-            return fn()
+            with graphs.disabled():
+                return fn()
         finally:
             blocked.MAX_CLUSTER = cap
 
@@ -879,7 +913,11 @@ def main() -> None:
     # shapes, opted in (MATINV_LOCKSTEP=1) and not: the two must agree bit
     # for bit, raw (refine=0) and refined (the default); the lockstep call
     # launches K6 (k = 8 at n = 1024: 2 chunks x 8 panels; k = 4 at
-    # n = 2048: 2 x 16) and never K2. Gates: refined <= 1e-6, raw <= 1e-4,
+    # n = 2048: 2 x 16) and never K2: the wrappers count the first call's
+    # eager warm-up (utils/graphs.py), the replayed graph holds the panel
+    # kernel as often (graphs.kernel_nodes; per matrix, K2 would launch it
+    # bsz times as often) and the profiler's records of a replay no more
+    # often, bit for bit. Gates: refined <= 1e-6, raw <= 1e-4,
     # as at 4096^2. Then a batch of 5 at n = 2048 (an odd tail: chunks of 4
     # and 1) and one with an all-ones member, whose ok alone is false.
     phase("phase 5f: lockstep route (MATINV_LOCKSTEP=1) vs per-matrix")
@@ -895,10 +933,25 @@ def main() -> None:
             on, ok_on = inverse(xs)
             counts_ls[n] = read_counts(f"lockstep inverse ({bsz}, {n}, {n})",
                                        ("K6",))
+            replayed = []
+            try:
+                rows = device_kernels(
+                    lambda: replayed.append(inverse(xs)[0]))
+            except profiling.NoDeviceTime as exc:
+                fail(f"lockstep replay: {exc}")
+            held = kernel_launches([(k, c, 0.0) for k, c in
+                                    graphs.kernel_nodes(1).items()])
             on_raw, ok_on_raw = blocked.blocked_inverse(xs, refine=0)
         name = f"({bsz}, {n}, {n})"
         check(counts_ls[n]["K6"] == want and counts_ls[n]["K2"] == 0,
               f"lockstep {name}: K6 launched {want} times, K2 never")
+        check(held == {"K2/K6": want}
+              and all(bits_equal(r, on) for r in replayed),
+              f"lockstep {name}: the replayed graph holds the panel kernel "
+              f"{want} times and no other of the port's, bit for bit the "
+              f"first call")
+        hold_records(f"lockstep {name} replayed", kernel_launches(rows),
+                     held)
         check(bits_equal(on, off) and bits_equal(on_raw, off_raw),
               f"lockstep {name}: bit-identical to the per-matrix route, "
               f"refined and raw")
@@ -1476,16 +1529,18 @@ def main() -> None:
     # events, the profiler's device time, the idle share and the top
     # kernels, beside the bound (potri_effective_flops of that schedule at
     # the FP32 peak, or the bytes) and torch.cholesky_inverse after
-    # torch.linalg.cholesky as a yardstick (the route never calls it).
+    # torch.linalg.cholesky as a yardstick (the route never calls it). The
+    # schedules run eagerly: the switch is part of a graph's key, and these
+    # are the eager numbers the compiled phase compares with. A call whose
+    # device time the profiler loses fails the run.
     def profile_call(fn):
-        """(device ms, top kernels) of one call after a warm-up; (None,
-        []) when the profiler saw no device time ("not measured")."""
+        """(device ms, top kernels) of one call after a warm-up."""
         fn()
         torch.cuda.synchronize()
         try:
             rows = device_kernels(fn)
-        except profiling.NoDeviceTime:
-            return None, []
+        except profiling.NoDeviceTime as exc:
+            fail(f"potri timing: {exc}")
         return sum(ms for _, _, ms in rows), rows[:5]
 
     def show(val) -> str:
@@ -1495,8 +1550,9 @@ def main() -> None:
     for n, xs in ((4096, spd4k), (8192, spd8k)):
         for name in ("cols", "2d"):
             cholesky._POTRI_PRODUCT_2D = name == "2d"
-            ev = events_ms(lambda: cholesky_inverse(xs), iters=3)
-            dv, top = profile_call(lambda: cholesky_inverse(xs))
+            with graphs.disabled():
+                ev = events_ms(lambda: cholesky_inverse(xs), iters=3)
+                dv, top = profile_call(lambda: cholesky_inverse(xs))
             fl = cholesky.potri_effective_flops(n)
             b_ms, b_by = bound(fl, 2 * n * n * 4)
             log(f"  potri {n}^2 schedule {name}: {ev:.4f} ms events, "
@@ -1816,6 +1872,286 @@ def main() -> None:
          "library_ms_bf16": times["k7_library_matmul_4096_bfloat16_ms"]},
     ]
     nccl_world.close()
+
+    # ---- phase 8: the compiled routes (CUDA graphs) ---------------------
+    # Each compiled route (utils/graphs.py, the port's counterpart of the
+    # JAX package's jax.jit per static signature) at its PERF.md section 4
+    # shape, in three legs: eager (graphs.disabled()), the first call (the
+    # warm-up, the capture and one replay) and replays. Checks: outputs and
+    # ok bit for bit across the three legs (a library call that parted
+    # under capture would fail here, by name of route); the profiler's
+    # records of the port's kernels in the eager leg show none more often
+    # than the wrappers counted, the route's graphs hold those kernels as
+    # nodes (graphs.kernel_nodes), a replay's profiler records show none
+    # more often (the profiler can drop a record, never adds one: a
+    # shortfall is printed), and a replay runs no wrapper; graphs.stats()
+    # counts one capture and then one replay a call for each of the route's
+    # graphs, so an eager run cannot pass for a replay; A, B, A with A's
+    # first result held leaves it unchanged, and B's replay gives B's eager
+    # bits (a step left out of the graph would replay its value for A);
+    # check_deterministic (the first run eager, the rest replays; the
+    # allocator and the graphs' pool poisoned between runs). Reported with
+    # the card: CUDA events and the profiler's device ms of the eager and
+    # the replayed leg (a lost device time fails the run), their idle
+    # shares, the first call's ms by the host clock and its parts
+    # (graphs.first_calls(): warm-up, capture, first replay), the bytes the
+    # graphs' pool gained, and the peak device memory of each leg above
+    # what was live (a replay allocates only its outputs' clones). Then the
+    # gate's evidence: the blocked route's eager idle share at 4096^2,
+    # 8192^2 and 16384^2, LU getri's and potri's at 8192^2, and those three
+    # replayed at 8192^2 (inside the gate). Last, what the cache holds
+    # after the sweep's sizes (650 .. 2000 by 10): its graphs (at most
+    # graphs.MAX_GRAPHS), the pool's bytes, and the device memory reserved
+    # and allocated before and after.
+    phase(f"phase 8: compiled routes, eager against replayed, on {card}")
+    graphs.clear()
+
+    def leaves(out) -> list:
+        return list(out) if isinstance(out, tuple) else [out]
+
+    def same_bits(x, y) -> bool:
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        for a, b in zip(leaves(x), leaves(y), strict=True):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                return False
+            if a.is_floating_point():
+                a, b = (t.view(ints[t.element_size()]) for t in (a, b))
+            if not torch.equal(a, b):
+                return False
+        return True
+
+    def counted(fn):
+        """fn()'s result and the launches the wrappers counted in it."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: w.launches for k, w in wrappers.items()}
+
+    def as_records(counts: dict, times: int) -> dict:
+        """Wrapper counts of one call as the profiler's records of
+        ``times`` calls (K2 and K6 launch one kernel)."""
+        out = {}
+        for k, c in counts.items():
+            key = "K2/K6" if k in ("K2", "K6") else k
+            if c:
+                out[key] = out.get(key, 0) + c * times
+        return out
+
+    def peak_of(fn) -> int:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - live
+
+    def leg(name, fn, iters):
+        """(events ms, device ms a call, the kernels of ``iters`` calls)."""
+        ev = events_ms(fn, iters=iters)
+        try:
+            rows = device_kernels(lambda: [fn() for _ in range(iters)])
+        except profiling.NoDeviceTime as exc:
+            fail(f"{name}: {exc}")
+        return ev, sum(ms for _, _, ms in rows) / iters, rows
+
+    def locked(x):
+        with lockstep_on():
+            return inverse(x)
+
+    x4k_b = torch.from_numpy(hollow_random_matrix(4096, seed=2)).to(dev)
+    x4k64_b = x4k_b.double()
+    spd4k_b = spd(4096, 2)
+    xwc_b = torch.from_numpy(well_conditioned_matrix(4096, seed=2)).to(dev)
+    rhs_b = rhs.flip(0)
+    xs8 = lockstep_in[(8, 2048)]
+    xs16_b, xs8_b = xs16.flip(0), xs8.flip(0)
+    x256 = torch.from_numpy(hollow_random_matrix(
+        256, seed=256, dtype=np.float64)).to(dev)
+    x256_b = torch.from_numpy(hollow_random_matrix(
+        256, seed=257, dtype=np.float64)).to(dev)
+    lu_fns = ("lu_factor_blocked", "lu_solve_fast")
+    chol_fns = ("cholesky_factor", "cholesky_solve")
+    routes = [
+        # (name, the compiled functions it calls, call on A, on B, iters)
+        ("blocked 4096^2 refined", ("blocked_inverse",),
+         lambda: inverse(x4k), lambda: inverse(x4k_b), 3),
+        ("bf16 search 4096^2", ("blocked_inverse",),
+         lambda: inverse(x4k, search_bf16=True),
+         lambda: inverse(x4k_b, search_bf16=True), 3),
+        ("FP64 4096^2", ("blocked_inverse",), lambda: inverse(x4k64),
+         lambda: inverse(x4k64_b), 1),
+        ("per-matrix (16, 1024^2)", ("blocked_inverse",),
+         lambda: inverse(xs16), lambda: inverse(xs16_b), 2),
+        ("lockstep (16, 1024^2)", ("blocked_inverse",),
+         lambda: locked(xs16), lambda: locked(xs16_b), 2),
+        ("per-matrix (8, 2048^2)", ("blocked_inverse",),
+         lambda: inverse(xs8), lambda: inverse(xs8_b), 2),
+        ("lockstep (8, 2048^2)", ("blocked_inverse",),
+         lambda: locked(xs8), lambda: locked(xs8_b), 2),
+        ("LU getri 4096^2", ("lu_inverse_fast",),
+         lambda: inverse(x4k, method="lu"),
+         lambda: inverse(x4k_b, method="lu"), 3),
+        ("solve 4096^2 x 16", lu_fns, lambda: solve(x4k, rhs),
+         lambda: solve(x4k_b, rhs_b), 3),
+        ("potri 4096^2", ("cholesky_inverse",),
+         lambda: cholesky_inverse(spd4k), lambda: cholesky_inverse(spd4k_b),
+         3),
+        ("Cholesky solve 4096^2 x 16", chol_fns,
+         lambda: solve(spd4k, rhs, method="cholesky"),
+         lambda: solve(spd4k_b, rhs_b, method="cholesky"), 3),
+        ("Newton-Schulz 4096^2", ("newton_schulz_inverse",),
+         lambda: inverse(xwc, method="ns"),
+         lambda: inverse(xwc_b, method="ns"), 1),
+        ("spec FP64 256^2", ("gauss_jordan_inverse",),
+         lambda: inverse(x256), lambda: inverse(x256_b), 3),
+    ]
+    def grown(before: dict, fns) -> list:
+        """Captures and replays of each of ``fns`` since ``before``."""
+        now = graphs.stats()
+        zero = {"captures": 0, "replays": 0}
+        return [{k: now.get(fn, zero)[k] - before.get(fn, zero)[k]
+                 for k in zero} for fn in fns]
+
+    compiled_rows = {}
+    for name, fns, call_a, call_b, iters in routes:
+        st0 = graphs.stats()
+        with graphs.disabled():
+            eager, eager_counts = counted(call_a)
+            eager_peak = peak_of(call_a)
+            ev_e, dv_e, rows_e = leg(f"{name} eager", call_a, iters)
+        check(graphs.stats() == st0, f"{name}: the eager leg captured and "
+              f"replayed nothing")
+        hold_records(f"{name} eager ({iters} calls)",
+                     kernel_launches(rows_e), as_records(eager_counts, iters))
+        pool_before = graphs.pool_bytes()
+        firsts_before = len(graphs.first_calls())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = call_a()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        pool_gain = graphs.pool_bytes() - pool_before
+        parts = graphs.first_calls()[firsts_before:]
+        check(grown(st0, fns) == [{"captures": 1, "replays": 1}] * len(fns),
+              f"{name}: the first call captured {'+'.join(fns)} once and "
+              f"replayed it")
+        st1 = graphs.stats()
+        replay, replay_counts = counted(call_a)
+        check(grown(st1, fns) == [{"captures": 0, "replays": 1}] * len(fns),
+              f"{name}: the next call replayed, capturing nothing")
+        log(f"  {name}: launches eager {eager_counts}; first call "
+            f"{first_ms:.2f} ms: " + "; ".join(
+                f"{sig[:60]} warm-up {p['warmup_ms']:.2f}, capture "
+                f"{p['capture_ms']:.2f}, first replay {p['replay_ms']:.2f}"
+                for sig, p in parts))
+        check(not any(replay_counts.values()),
+              f"{name}: a replay ran no kernel wrapper")
+        held_nodes = kernel_launches([(k, n, 0.0) for k, n in
+                                      graphs.kernel_nodes(len(fns)).items()])
+        check(held_nodes == as_records(eager_counts, 1),
+              f"{name}: the route's graphs hold the port's kernels as the "
+              f"eager call launches them ({held_nodes})")
+        check(same_bits(first, eager) and same_bits(replay, eager),
+              f"{name}: eager, first call and replay bit-identical "
+              f"(outputs and ok)")
+        replay_peak = peak_of(call_a)
+        ev_r, dv_r, rows_r = leg(f"{name} replayed", call_a, iters)
+        ran_r = kernel_launches(rows_r)
+        hold_records(f"{name} replayed ({iters} calls)", ran_r,
+                     {k: n * iters for k, n in held_nodes.items()})
+        with graphs.disabled():
+            eager_b = call_b()
+        held = call_a()
+        keep = [t.clone() for t in leaves(held)]
+        other = call_b()
+        again = call_a()
+        check(same_bits(held, tuple(keep)) and same_bits(again, held)
+              and not same_bits(other, held),
+              f"{name}: A, B, A leaves A's held result unchanged")
+        check(same_bits(other, eager_b), f"{name}: B's replay is B's eager "
+              f"bits (the graph recomputes every step from its input)")
+        t0 = time.perf_counter()
+        same, diff = determinism.check_deterministic(call_a, runs=3)
+        check(same, f"{name}: check_deterministic (eager, then replays, "
+              f"poisoned between) bit-identical, max_diff {diff} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        row = {"events_ms_eager": ev_e, "device_ms_eager": dv_e,
+               "idle_eager": 1 - dv_e / ev_e, "events_ms_replayed": ev_r,
+               "device_ms_replayed": dv_r, "idle_replayed": 1 - dv_r / ev_r,
+               "first_call_ms": first_ms,
+               "first_call_parts": [p for _, p in parts],
+               "kernel_nodes": held_nodes,
+               "kernels_recorded": ran_r,
+               "records_eager": sum(c for _, c, _ in rows_e) / iters,
+               "records_replayed": sum(c for _, c, _ in rows_r) / iters,
+               "pool_bytes_gained": pool_gain,
+               "peak_bytes_eager": eager_peak,
+               "peak_bytes_replayed": replay_peak}
+        compiled_rows[name] = row
+        log(f"  {name}: eager {ev_e:.4f} ms events / {dv_e:.4f} ms device "
+            f"(idle {row['idle_eager']:.4f}); replayed {ev_r:.4f} / "
+            f"{dv_r:.4f} (idle {row['idle_replayed']:.4f}); first call "
+            f"{first_ms:.2f} ms; pool +{pool_gain / 1e6:.1f} MB; peak above "
+            f"live: eager {eager_peak / 1e6:.1f} MB, replayed "
+            f"{replay_peak / 1e6:.1f} MB   [{card}]")
+        for key, count, ms in rows_r[:4]:
+            log(f"    replayed: {ms / iters:10.4f} ms  {count // iters:5d}x"
+                f"  {key[:80]}")
+        del eager, first, replay, held, keep, other, again, eager_b
+    log(f"  graphs' pool: {graphs.pool_bytes() / 1e6:.1f} MB after "
+        f"{len(routes)} routes; stats {graphs.stats()}")
+
+    # The gate (graphs.GATE_ELEMENTS: one matrix to 8192^2): capture where
+    # the eager idle share is 10% or more.
+    gate = {}
+    for n in (4096, 8192, 16384):
+        xg = x4k if n == 4096 else torch.from_numpy(
+            hollow_random_matrix(n, seed=n)).to(dev)
+        sized = [("blocked", lambda: inverse(xg))]
+        if n == 8192:
+            sized += [("LU getri", lambda: inverse(xg, method="lu")),
+                      ("potri", lambda: cholesky_inverse(spd8k))]
+        for route, fn in sized:
+            with graphs.disabled():
+                ev, dv, _ = leg(f"{route} {n}^2 eager", fn, 1)
+            gate[f"{route} {n}^2 eager"] = (ev, dv, 1 - dv / ev)
+            if n == 8192:
+                ev, dv, _ = leg(f"{route} {n}^2 replayed", fn, 1)
+                gate[f"{route} {n}^2 replayed"] = (ev, dv, 1 - dv / ev)
+        del xg
+    for key, (ev, dv, idle) in gate.items():
+        log(f"  gate: {key}: {ev:.4f} ms events, {dv:.4f} ms device, idle "
+            f"share {idle:.4f}   [{card}]")
+
+    # The cache after the sweep's sizes: one blocked_inverse graph a size
+    # (sweep_cuda's method="auto" past the fused route), the oldest
+    # dropped past graphs.MAX_GRAPHS.
+    del spd8k
+    graphs.clear()
+    torch.cuda.synchronize()
+    mem0 = (torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev))
+    sizes = [n for n in reference_sizes(2000) if n > fused.FUSED_MAX_N]
+    t0 = time.perf_counter()
+    for n in sizes:
+        xn = torch.rand(n, n, device=dev)
+        xn.fill_diagonal_(0.0)
+        if not bool(inverse(xn)[1]):
+            fail(f"sweep size {n}: ok false")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    mem1 = (torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev))
+    st = graphs.stats().get("blocked_inverse", {})
+    log(f"  cache after {len(sizes)} sweep sizes ({sizes[0]} .. "
+        f"{sizes[-1]}; {sweep_s:.2f} s): {graphs.cached()} graphs, "
+        f"{st.get('captures')} captures, pool {graphs.pool_bytes() / 1e6:.1f}"
+        f" MB; reserved {mem0[0] / 1e6:.1f} -> {mem1[0] / 1e6:.1f} MB, "
+        f"allocated {mem0[1] / 1e6:.1f} -> {mem1[1] / 1e6:.1f} MB   [{card}]")
+    check(graphs.cached() == min(len(sizes), graphs.MAX_GRAPHS)
+          and st.get("captures") == len(sizes),
+          f"the cache keeps the {graphs.MAX_GRAPHS} graphs used last")
+    graphs.clear()
+    log("  compiled routes: " + json.dumps(compiled_rows))
     phase("done")
     print(smi)
     print(json.dumps({"kernels": kernels}))

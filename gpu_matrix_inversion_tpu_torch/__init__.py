@@ -34,7 +34,12 @@ port carries:
   column-sharded over a ``torch.distributed`` mesh (NCCL on cards, gloo
   ranks on the CPU), ``make_device_mesh``, ``sharded_blocked_inverse``,
   ``sharded_batched_inverse``, and ``spawn_ranks`` to start a world on one
-  host.
+  host;
+- the compiled routes (``utils/graphs.py``): on the card each of the
+  above that the JAX package runs under ``jax.jit`` (blocked, lockstep,
+  LU, Cholesky, Newton-Schulz, ``spec``) is one CUDA graph per static
+  signature, captured at its first call and replayed after;
+  ``graphs.disabled()`` runs it eagerly.
 
 The kernels are CUDA C++ for ``sm_90a``, built with ``nvcc`` on first use
 (``utils/cuda_build.py``); importing the package builds nothing. Every

@@ -117,9 +117,12 @@ def measure_phases(n: int = 2048, *, block_size: int = 128,
     Returns the reference's Res slots ``make_augmented / pivot / row /
     column`` and ``total_compute``, per call: ``reps`` profiled sessions
     of ``k`` calls each, after one warm-up call, keeping the session with
-    the least ``total_compute``.
+    the least ``total_compute``. The call runs eagerly
+    (``graphs.disabled()``): a replayed graph launches its kernels from no
+    profiler range, so none could be attributed to a slot.
     """
     from gpu_matrix_inversion_tpu_torch.ops.blocked import blocked_inverse
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
         hollow_random_matrix)
     device = torch.device(device)
@@ -129,8 +132,9 @@ def measure_phases(n: int = 2048, *, block_size: int = 128,
         return blocked_inverse(a, pivot=pivot, block_size=block_size,
                                precision=precision, refine=0)
 
-    call()                       # kernel build, cluster plans, caches
-    runs = [_profile_call(call, k, device) for _ in range(reps)]
+    with graphs.disabled():
+        call()                   # kernel build, cluster plans, caches
+        runs = [_profile_call(call, k, device) for _ in range(reps)]
     return min(runs, key=lambda got: got["total_compute"])
 
 

@@ -18,9 +18,11 @@ from __future__ import annotations
 
 import torch
 
+from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
 
 
+@compiled
 def newton_schulz_inverse(a: torch.Tensor, *, iters: int = 30,
                           mixed: bool = False):
     """Invert ``(..., n, n)`` by Newton-Schulz on ``a``'s device; returns

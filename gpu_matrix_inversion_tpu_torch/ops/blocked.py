@@ -54,6 +54,7 @@ from gpu_matrix_inversion_tpu_torch.ops.fused import (SHARED_BYTES, _fms,
 from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import _gauss_jordan_aug
 from gpu_matrix_inversion_tpu_torch.ops.refine import newton_schulz_refine
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
+from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
 from gpu_matrix_inversion_tpu_torch.utils.precision import (PRECISIONS,
                                                             matmul_precision)
 from gpu_matrix_inversion_tpu_torch.utils.profiling import phase
@@ -426,7 +427,8 @@ def panel_factor(stripT: torch.Tensor, kb: int, used: torch.Tensor, *,
         int(geo.wp_shared), int(geo.rows_shared), geo.smem,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K2 panel_factor")
-    panel_factor.launches += 1
+    if not cuda_build.capturing():   # a graph's record is no launch
+        panel_factor.launches += 1
     return pivrows, ct, ok[0] != 0
 
 
@@ -466,7 +468,8 @@ def pivot_search(stripT: torch.Tensor, used: torch.Tensor):
         geo.cluster, geo.threads, int(geo.wp_shared), int(geo.rows_shared),
         geo.smem, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K3 pivot_search")
-    pivot_search.launches += 1
+    if not cuda_build.capturing():   # a graph's record is no launch
+        pivot_search.launches += 1
     return pivrows
 
 
@@ -534,7 +537,8 @@ def invert_small(d: torch.Tensor, *, pivot: bool):
             d3.data_ptr(), inv.data_ptr(), ok.data_ptr(), bsz, b, int(pivot),
             torch.cuda.current_stream(d.device).cuda_stream)
         cuda_build.check(err, "K4 small_inv")
-        invert_small.launches += 1
+        if not cuda_build.capturing():   # a graph's record is no launch
+            invert_small.launches += 1
         ok = ok != 0
     else:
         raise ValueError(f"K4 runs on cuda (or its twin on cpu), not "
@@ -597,19 +601,21 @@ def _panel_pivots_logical(strip: torch.Tensor, used: torch.Tensor, kb: int,
     ok = torch.ones((), dtype=torch.bool, device=dev)
     for r in range(b):
         col = w[:, r].clone()
+        # The pivot row as a one-element index: a 0-dim tensor would index
+        # as a Python int, read back from the card each step.
         if pivot:
             p = torch.where(used, torch.full_like(col, -1),
-                            col.abs()).argmax()
+                            col.abs()).argmax().view(1)
         else:
-            p = torch.tensor(kb + r, device=dev)
-        piv = col[p]
+            p = torch.full((1,), kb + r, dtype=torch.long, device=dev)
+        piv = col[p][0]
         ok &= piv != 0
-        used[p] = True
-        pivrows[r] = p
-        norm = w[p] / torch.where(piv == 0, torch.ones_like(piv), piv)
-        col[p] = 0.0
+        used.index_fill_(0, p, True)
+        pivrows[r] = p[0]
+        norm = w[p][0] / torch.where(piv == 0, torch.ones_like(piv), piv)
+        col.index_fill_(0, p, 0.0)
         w -= col[:, None] * norm[None, :]
-        w[p] = norm
+        w[p] = norm[None]
     return pivrows, ok
 
 
@@ -695,10 +701,11 @@ def _apply_panel(og: torch.Tensor, used: torch.Tensor, pivrows: torch.Tensor,
     set ``og`` in place, and mark its pivot rows in ``used``."""
     b = pivrows.shape[0]
     rows = pivrows.long()
-    used[rows] = 1
+    used.index_fill_(0, rows, 1)
     # Inject this panel's identity probe columns BEFORE its own update
     # (prior transforms act as identity on them; the columns were 0).
-    og[rows, torch.arange(gw + ib, gw + ib + b, device=og.device)] = 1.0
+    og[rows, torch.arange(gw + ib, gw + ib + b, device=og.device)] = (
+        og.new_ones(()))
     # Windowed internal update: O columns before this panel are frozen and
     # G probes beyond it still zero, so the live columns are
     # og[:, ib : gw+ib+b]. One rank-b GEMM eliminates AND deposits. The
@@ -734,7 +741,7 @@ def _augment(a: torch.Tensor, m: int, lo: int = 0,
         aug[:n, :min(hi, n) - lo] = a[:, lo:min(hi, n)]
     if max(lo, n) < min(hi, m):
         pad = torch.arange(max(lo, n), min(hi, m), device=a.device)
-        aug[pad, pad - lo] = 1.0
+        aug[pad, pad - lo] = aug.new_ones(())
     return aug
 
 
@@ -825,6 +832,7 @@ def _blocked_gj(a: torch.Tensor, *, pivot: bool, b: int, group_size: int,
     return inv, ok
 
 
+@compiled
 def blocked_inverse(a: torch.Tensor, *, pivot: bool = True,
                     block_size: int = DEFAULT_BLOCK_SIZE,
                     precision: str = "highest",

@@ -32,6 +32,7 @@ from gpu_matrix_inversion_tpu_torch.ops.lu import (_check_square, _eye,
                                                    _getri_product_flops,
                                                    _trtri_effective_flops,
                                                    invert_triangular)
+from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
 
 # potri's product schedule (cholesky.py:27-40): the column schedule by
 # default, the 2-D double-triangular tiling with MATINV_POTRI_PRODUCT=2d.
@@ -56,7 +57,7 @@ def _chol_factor_blocked_2d(a: torch.Tensor, *, b: int):
     """
     m = a.shape[-1]
     w = torch.tril(a)
-    nan = torch.tensor(float("nan"), dtype=a.dtype, device=a.device)
+    nan = torch.full((), float("nan"), dtype=a.dtype, device=a.device)
     for k0 in range(0, m, b):
         k1 = k0 + b
         dblk = w[:, k0:k1, k0:k1]
@@ -94,6 +95,7 @@ def _block_size(n: int, block_size: int) -> int:
     return min(block_size, max(-(-n // 8) * 8, 8))
 
 
+@compiled
 @_fp32_gemms
 def cholesky_factor(a: torch.Tensor, *, block_size: int = 256):
     """potrf: lower-Cholesky factor of SPD ``a`` (shape ``(..., n, n)``).
@@ -118,6 +120,7 @@ def cholesky_factor(a: torch.Tensor, *, block_size: int = 256):
     return (low[:, :n, :n].reshape(a.shape), ok.reshape(a.shape[:-2]))
 
 
+@compiled
 @_fp32_gemms
 def cholesky_solve(low: torch.Tensor, b: torch.Tensor):
     """potrs: solve ``A @ x = b`` given ``A = L @ L.T`` from
@@ -158,6 +161,7 @@ def potri_effective_flops(n: int, *, block_size: int = 256) -> int:
             + _getri_product_flops(n, left_triangular=_POTRI_PRODUCT_2D))
 
 
+@compiled
 @_fp32_gemms
 def cholesky_inverse(a: torch.Tensor):
     """potri: explicit inverse of SPD ``a`` via ``A^-1 = L^-T L^-1``

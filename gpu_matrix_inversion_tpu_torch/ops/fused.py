@@ -279,7 +279,8 @@ def _launch(a: torch.Tensor, pivot: bool):
         0 if geo is None else geo.cluster, 0 if geo is None else geo.smem,
         torch.cuda.current_stream(a.device).cuda_stream)
     cuda_build.check(err, "K1 fused_gj")
-    gj_kernel.launches += 1
+    if not cuda_build.capturing():   # a graph's record is no launch
+        gj_kernel.launches += 1
     return inv, pos, ok != 0
 
 

@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import torch
 
+from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
+
 
 def _augment(a: torch.Tensor) -> torch.Tensor:
     """Build the augmented system ``[A|I]`` (reference makeAugmentedMatrix,
@@ -88,6 +90,7 @@ def _gauss_jordan_aug(a: torch.Tensor, *, pivot: bool):
     return inv, ok
 
 
+@compiled
 def gauss_jordan_inverse(a: torch.Tensor, *, pivot: bool = True):
     """Invert ``a`` by Gauss-Jordan elimination on the augmented ``[A|I]``.
 

@@ -42,6 +42,7 @@ from gpu_matrix_inversion_tpu_torch.ops.blocked import (
 from gpu_matrix_inversion_tpu_torch.ops.fused import _round_up
 from gpu_matrix_inversion_tpu_torch.ops.refine import newton_schulz_refine
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
+from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
 
 # The reference's gate, copied unchanged so both packages route alike: the
@@ -127,7 +128,8 @@ def _launch(stripsT: torch.Tensor, kb: int, used: torch.Tensor,
         int(geo.wp_shared), int(geo.rows_shared), geo.smem,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "K6 lockstep_factor")
-    lockstep_factor.launches += 1
+    if not cuda_build.capturing():   # a graph's record is no launch
+        lockstep_factor.launches += 1
     return pivrows, ct, ok != 0
 
 
@@ -191,6 +193,7 @@ def _blocked_gj_lockstep(a: torch.Tensor, *, pivot: bool, b: int,
     return invs, ok
 
 
+@compiled
 def lockstep_inverse(a: torch.Tensor, *, pivot: bool, b: int, k: int,
                      precision: str, group_size: int, refine: int):
     """Invert a (B, n, n) fp32 batch in lockstep chunks of ``k``

@@ -41,6 +41,7 @@ from gpu_matrix_inversion_tpu_torch.ops.blocked import (_default_group_size,
                                                         pivot_search)
 from gpu_matrix_inversion_tpu_torch.ops.fused import _fms
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
+from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
 
 
@@ -230,7 +231,8 @@ def small_lu(d: torch.Tensor):
             d3.data_ptr(), packed.data_ptr(), ok.data_ptr(), bsz, b,
             torch.cuda.current_stream(d.device).cuda_stream)
         cuda_build.check(err, "K5 small_lu")
-        small_lu.launches += 1
+        if not cuda_build.capturing():   # a graph's record is no launch
+            small_lu.launches += 1
         ok = ok != 0
     else:
         raise ValueError(f"K5 runs on cuda (or its twin on cpu), not "
@@ -261,20 +263,22 @@ def _lu_panel(strip: torch.Tensor, used: torch.Tensor, kb: int, *, b: int,
     ok = torch.ones((), dtype=torch.bool, device=dev)
     for r in range(b):
         col = w[:, r].clone()
+        # The pivot row as a one-element index: a 0-dim tensor would index
+        # as a Python int, read back from the card each step.
         if pivot:
             p = torch.where(used != 0, torch.full_like(col, -1),
-                            col.abs()).argmax()
+                            col.abs()).argmax().view(1)
         else:
-            p = torch.tensor(kb + r, device=dev)
-        piv = col[p].clone()
+            p = torch.full((1,), kb + r, dtype=torch.long, device=dev)
+        piv = col[p][0]
         ok &= piv != 0
         eliminable = (used == 0) & (rows != p)
         f = torch.where(eliminable,
                         col / torch.where(piv == 0, torch.ones_like(piv), piv),
                         torch.zeros_like(col))
-        used[p] = 1
-        pivrows[r] = p
-        w[:, r + 1:] -= f[:, None] * w[p, r + 1:][None, :]
+        used.index_fill_(0, p, 1)
+        pivrows[r] = p[0]
+        w[:, r + 1:] -= f[:, None] * w[p, r + 1:]
         w[:, r] = torch.where(eliminable, f, w[:, r])
     return w, pivrows, used, ok
 
@@ -343,7 +347,7 @@ def _lu_factor_blocked_2d(a: torch.Tensor, *, b: int, pivot: bool,
         if use_kernels:
             w, pivrows, l_trunc, l11, okp = _panel_from_kernels(
                 strip, used, kb, b=b, pivot=pivot, search_bf16=search_bf16)
-            used[pivrows.long()] = 1
+            used.index_fill_(0, pivrows.long(), 1)
         else:
             w, pivrows, used, okp = _lu_panel(strip, used, kb, b=b,
                                               pivot=pivot)
@@ -402,7 +406,7 @@ def _lu_factor_grouped_2d(a: torch.Tensor, *, b: int, group: int,
             ok &= okp
             strip[:, ib:ib + b] = w
             rows = pivrows.long()
-            used[rows] = 1
+            used.index_fill_(0, rows, 1)
             pivloc[ib:ib + b] = pivrows
             # Internal trailing update, confined to the strip.
             u_all = _tri_solve(l11, strip[rows], lower=True,
@@ -424,6 +428,7 @@ def _lu_factor_grouped_2d(a: torch.Tensor, *, b: int, group: int,
     return lu, pos[:n], ok
 
 
+@compiled
 @_fp32_gemms
 def lu_factor_blocked(a: torch.Tensor, *, pivot: bool = True,
                       block_size: int = 128):
@@ -463,6 +468,7 @@ def _lu_mats(lu: torch.Tensor):
             torch.where(tri, 0.0, lu))
 
 
+@compiled
 @_fp32_gemms
 def lu_solve_fast(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor):
     """Blocked getrs through the library's triangular solves (the fast
@@ -594,6 +600,7 @@ def _trtri_blocked_2d(t: torch.Tensor, *, lower: bool, unit_diagonal: bool,
     return x[0][:n, :n]
 
 
+@compiled
 @_fp32_gemms
 def invert_triangular(t: torch.Tensor, *, lower: bool = True,
                       unit_diagonal: bool = False, b: int | None = None,
@@ -687,6 +694,7 @@ def _lu_inverse_chunked(lu: torch.Tensor, perm: torch.Tensor, *,
     return out, ok
 
 
+@compiled
 @_fp32_gemms
 def lu_inverse_fast(a: torch.Tensor, *, chunk: int = 2048):
     """Blocked getri; returns ``(inverse, ok)`` (lu.py:930-959).

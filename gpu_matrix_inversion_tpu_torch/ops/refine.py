@@ -19,9 +19,11 @@ from __future__ import annotations
 
 import torch
 
+from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
 
 
+@compiled
 def newton_schulz_refine(a: torch.Tensor, x: torch.Tensor, *,
                          iters: int = 2, residual_dtype=None) -> torch.Tensor:
     """Refine an approximate inverse ``x`` of ``a`` by ``iters`` Newton-
@@ -38,6 +40,7 @@ def newton_schulz_refine(a: torch.Tensor, x: torch.Tensor, *,
     return x_h
 
 
+@compiled
 def refine_solve(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                  lu: torch.Tensor, perm: torch.Tensor, *, iters: int = 3,
                  residual_dtype=None) -> torch.Tensor:

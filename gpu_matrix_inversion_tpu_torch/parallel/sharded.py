@@ -65,6 +65,7 @@ from gpu_matrix_inversion_tpu_torch.ops.refine import newton_schulz_refine
 from gpu_matrix_inversion_tpu_torch.parallel.mesh import (make_device_mesh,
                                                           require_world,
                                                           world_serves)
+from gpu_matrix_inversion_tpu_torch.utils import graphs
 from gpu_matrix_inversion_tpu_torch.utils.precision import (PRECISIONS,
                                                             matmul_precision)
 
@@ -298,7 +299,10 @@ def sharded_blocked_inverse(a: torch.Tensor, *, mesh=None,
                               pivot=pivot, axis=axis, precision=precision,
                               search_bf16=search_bf16, group_size=group_size)
     if refine > 0:
-        inv = newton_schulz_refine(a, inv, iters=refine)
+        # Eager, as the rest of the route: its graph (NCCL in a CUDA
+        # graph) is later work.
+        with graphs.disabled():
+            inv = newton_schulz_refine(a, inv, iters=refine)
         ok = ok & torch.isfinite(inv).all()
     return inv, ok
 

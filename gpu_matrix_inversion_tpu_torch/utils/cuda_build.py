@@ -148,3 +148,12 @@ def check(err: int, kernel: str) -> None:
         msg = _lib.matinv_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def capturing() -> bool:
+    """Whether the current stream is recording a CUDA graph, where a
+    launch is recorded and does not run (``utils/graphs.py``); False on a
+    PyTorch built without CUDA."""
+    import torch
+    return (torch.version.cuda is not None
+            and torch.cuda.is_current_stream_capturing())

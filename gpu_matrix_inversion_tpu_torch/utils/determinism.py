@@ -14,7 +14,9 @@ On a CUDA device the poison between runs is real:
   written comes back as NaN where it held the last run's values. The blocks
   come from ``torch.cuda.memory_snapshot()``: a single large allocation
   would not reuse the small cached blocks that a kernel's scratch comes
-  from.
+  from. The free blocks of the CUDA graphs' pool (``utils/graphs.py``),
+  where a replayed graph keeps its scratch, are filled in place: no
+  allocation outside a capture reaches them.
 - :func:`poison_shared_memory` launches ``csrc/poison.cu``, one block an SM
   at the largest dynamic shared memory a block may take, filling each SM's
   shared memory with 0xFF. The kernels that keep their working sets on
@@ -22,6 +24,10 @@ On a CUDA device the poison between runs is real:
   run, which hides an uninitialised read.
 
 On the CPU the reference's cheap dummy computation stands in.
+
+The first run is eager (``graphs.disabled()``), the rest go through the
+compiled routes' graphs, so on the card the check also holds a captured
+and replayed route to its eager bits.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from gpu_matrix_inversion_tpu_torch.utils import cuda_build
+from gpu_matrix_inversion_tpu_torch.utils import cuda_build, graphs
 
 _CHUNK = 1 << 20   # the caching allocator's small-pool limit (1 MiB)
 
@@ -76,13 +82,17 @@ def poison_allocator(device, value: int = 0xFF) -> int:
     device = torch.device(device)
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    free = []
+    free, in_graphs = [], []
     for seg in torch.cuda.memory_snapshot():
         if seg["device"] != index:
             continue
+        private = tuple(seg["segment_pool_id"]) != (0, 0)
         for block in seg["blocks"]:
             if block["state"] == "inactive":
-                free.append((block["size"], seg["segment_type"]))
+                if private:
+                    in_graphs.append((block["address"], block["size"]))
+                else:
+                    free.append((block["size"], seg["segment_type"]))
     free.sort(reverse=True)
     held = []
     with torch.cuda.device(device):
@@ -94,7 +104,26 @@ def poison_allocator(device, value: int = 0xFF) -> int:
                 size -= part
         for t in held:
             t.fill_(value)
-    return sum(size for size, _ in free)
+        for address, size in in_graphs:
+            _over(address, size, device).fill_(value)
+    return (sum(size for size, _ in free)
+            + sum(size for _, size in in_graphs))
+
+
+class _Raw:
+    """``size`` bytes at ``address`` on the card, as a
+    ``__cuda_array_interface__`` that ``torch.as_tensor`` wraps without
+    copying or owning."""
+
+    def __init__(self, address: int, size: int):
+        self.__cuda_array_interface__ = {
+            "shape": (size,), "typestr": "|u1", "data": (address, False),
+            "strides": None, "version": 3}
+
+
+def _over(address: int, size: int, device) -> torch.Tensor:
+    """A uint8 tensor over memory the allocator holds but no tensor uses."""
+    return torch.as_tensor(_Raw(address, size), device=device)
 
 
 def poison_shared_memory(device) -> tuple[int, int]:
@@ -140,14 +169,20 @@ def check_deterministic(fn: Callable, *args, runs: int = 3,
     |a - b|; any integer or bool mismatch gives ``inf``. ``perturb=True``
     poisons the device between runs (see the module docstring); the device
     is that of the tensor arguments, or of ``fn``'s result when it takes
-    none.
+    none. The first run is eager (``graphs.disabled()``), the others reach
+    the compiled routes' graphs: the first of them captures a route's
+    graph, the rest replay it.
     """
     outs = []
     device = None
     for i in range(runs):
         if perturb and i > 0:
             _perturb(device)
-        out = fn(*args)
+        if i == 0:
+            with graphs.disabled():
+                out = fn(*args)
+        else:
+            out = fn(*args)
         if device is None:
             device = _device_of(args, out)
         outs.append([_to_host(x) for x in _leaves(out)])

@@ -17,6 +17,8 @@ import contextlib
 
 import torch
 
+from gpu_matrix_inversion_tpu_torch.utils import graphs
+
 # Whether phase() opens a record_function range; off outside trace() and
 # phase_ranges(), so that the hot path pays one flag test a phase.
 _ranges_on = False
@@ -35,11 +37,14 @@ def phase(name: str):
 
 @contextlib.contextmanager
 def phase_ranges():
-    """Turn :func:`phase`'s ranges on for the enclosed block."""
+    """Turn :func:`phase`'s ranges on for the enclosed block, whose
+    compiled calls run eagerly (``graphs.disabled()``): a replayed graph
+    opens no range, so its kernels could not be told apart by phase."""
     global _ranges_on
     prev, _ranges_on = _ranges_on, True
     try:
-        yield
+        with graphs.disabled():
+            yield
     finally:
         _ranges_on = prev
 
@@ -64,7 +69,8 @@ def _activities(device) -> list:
 def trace(log_dir: str, device="cuda"):
     """Capture a ``torch.profiler`` trace of the enclosed block into
     ``log_dir`` (``*.pt.trace.json``, readable in TensorBoard's profiler
-    plugin and in Perfetto), with the blocked driver's phase ranges on.
+    plugin and in Perfetto), with the blocked driver's phase ranges on
+    and so the compiled routes run eagerly (:func:`phase_ranges`).
     Records the CUDA activity of the block when ``device`` is a CUDA device
     (raising if it is absent), CPU activity only for ``device="cpu"``."""
     from torch.profiler import profile, tensorboard_trace_handler
@@ -188,6 +194,27 @@ def device_kernels(fn, tries: int = 3) -> list[tuple[str, int, float]]:
             return rows
     raise NoDeviceTime(f"torch.profiler recorded no device time in {tries} "
                        f"sessions")
+
+
+# The port's kernels (csrc/) by the names the profiler records them under.
+# K2 and K6 launch one kernel, K6 as k clusters of K2's.
+KERNEL_NAMES = {"K1": ("fused_gj_regs_kernel", "fused_gj_cluster_kernel"),
+                "K2/K6": ("panel_factor_cluster_kernel",),
+                "K3": ("pivot_search_cluster_kernel",),
+                "K4": ("small_inv_kernel",), "K5": ("small_lu_kernel",),
+                "K7": ("matmul_f32_kernel", "matmul_bf16_kernel")}
+
+
+def kernel_launches(rows) -> dict:
+    """``{kernel: launches}`` of the port's kernels (:data:`KERNEL_NAMES`)
+    in :func:`device_kernels`' rows, those that ran at least once: what
+    the device ran, a replayed graph's kernels included."""
+    out = {}
+    for key, count, _ in rows:
+        for kernel, names in KERNEL_NAMES.items():
+            if any(name in key for name in names):
+                out[kernel] = out.get(kernel, 0) + count
+    return out
 
 
 def device_ms(fn, iters: int = 1, name: str | None = None) -> float | None:

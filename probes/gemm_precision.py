@@ -11,7 +11,9 @@ residuals, the gap between the two raw inverses, and the time of one raw
 call after a warm-up call (CUDA events on the card, the host clock on the
 CPU). On the CPU the panel kernel's plain twin stands in for the kernel,
 so a CPU run and a card run of the same size separate the summation order
-of the GEMM library from the kernel. Imports no JAX.
+of the GEMM library from the kernel. The calls run eagerly
+(``graphs.disabled()``): a graph captured in one mode would replay in the
+other. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from gpu_matrix_inversion_tpu_torch.ops import blocked
+from gpu_matrix_inversion_tpu_torch.utils import graphs
 from gpu_matrix_inversion_tpu_torch.utils.generators import hollow_random_matrix
 
 SHIPPED_UPDATE = blocked._update
@@ -64,10 +67,11 @@ def run(n, seed, device, mode):
     try:
         a = hollow_random_matrix(n, seed=seed)
         x = torch.from_numpy(a).to(device)
-        blocked.blocked_inverse(x, refine=0)           # warm-up
-        (inv, ok), ms = timed(
-            lambda: blocked.blocked_inverse(x, refine=0), device)
-        ref, ok_ref = blocked.blocked_inverse(x)
+        with graphs.disabled():
+            blocked.blocked_inverse(x, refine=0)       # warm-up
+            (inv, ok), ms = timed(
+                lambda: blocked.blocked_inverse(x, refine=0), device)
+            ref, ok_ref = blocked.blocked_inverse(x)
         return {"raw": residual(x, inv), "refined": residual(x, ref),
                 "ok": bool(ok) and bool(ok_ref), "raw_ms": ms,
                 "inv": inv.cpu().numpy()}

@@ -9,6 +9,10 @@ pytest worker collects the same tests). On a machine with the card:
 (``--noconftest``: the suite's conftest imports JAX, which the GPU host
 need not have.)
 
+The compiled routes (``utils/graphs.py``): each replayed bit for bit as it
+runs eagerly, with the eager launch counts; a held result survives later
+replays; a capture that syncs the host raises.
+
 Tolerances as in ``chip_smoke.py``: pivot sequences identical, ok equal,
 values within 1e-4 of max|twin|; K1, K4 and K5 also elementwise against
 the twin (``_hold_to_twin``), K1's cluster branch byte-identical across
@@ -30,6 +34,10 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
+    # No graph from an earlier test: a compiled route's first call here
+    # runs its eager warm-up, whose launches the kernel wrappers count.
+    graphs.clear()
     return torch.device("cuda", 0)
 
 
@@ -526,6 +534,8 @@ def test_lockstep_route_launches_k6(cuda, monkeypatch):
     from gpu_matrix_inversion_tpu_torch.ops import lockstep
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
         hollow_random_matrix)
+    from gpu_matrix_inversion_tpu_torch.utils.profiling import (
+        device_kernels, kernel_launches)
     batch = np.stack([hollow_random_matrix(1024, seed=30 + i)
                       for i in range(5)])
     batch[3] = 1.0
@@ -534,8 +544,18 @@ def test_lockstep_route_launches_k6(cuda, monkeypatch):
     monkeypatch.setenv("MATINV_LOCKSTEP", "1")
     k2, k6 = blocked.panel_factor.launches, lockstep.lockstep_factor.launches
     on, ok_on = inverse(x)
+    # The call is compiled (utils/graphs.py): its first call with this
+    # signature launches K6 8 times in its eager warm-up, then replays the
+    # graph, which runs no wrapper. The profiler counts a replay's kernels.
     assert blocked.panel_factor.launches == k2
     assert lockstep.lockstep_factor.launches == k6 + 8
+    again = []
+    rows = device_kernels(lambda: again.append(inverse(x)[0]))
+    assert _nodes(1) == {"K2/K6": 8}
+    assert _at_most(kernel_launches(rows), {"K2/K6": 8})
+    assert blocked.panel_factor.launches == k2
+    assert lockstep.lockstep_factor.launches == k6 + 8
+    torch.testing.assert_close(again[0], on, rtol=0, atol=0, equal_nan=True)
     # Bit for bit; the singular member's output may hold NaNs, which
     # torch.equal never calls equal.
     torch.testing.assert_close(on, off, rtol=0, atol=0, equal_nan=True)
@@ -834,3 +854,309 @@ def test_multichip_example_on_the_cards(cuda):
     assert r.returncode == 0, r.stderr[-2000:]
     assert f"world of {torch.cuda.device_count()} cuda ranks" in r.stdout
     assert "sharded ok: True" in r.stdout and "dp x tp ok: True" in r.stdout
+
+
+# --------------------------------------------------------------------------
+# The compiled routes: CUDA graphs captured once and replayed
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def graph_cache(cuda):
+    """An empty graph cache on the card, emptied again afterwards."""
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
+    graphs.clear()
+    yield graphs
+    graphs.clear()
+
+
+def _wrappers() -> dict:
+    from gpu_matrix_inversion_tpu_torch.ops import lockstep, matmul
+    return {"K1": fused.gj_kernel, "K2": blocked.panel_factor,
+            "K3": blocked.pivot_search, "K4": blocked.invert_small,
+            "K5": lu.small_lu, "K6": lockstep.lockstep_factor,
+            "K7": matmul.tiled_matmul}
+
+
+def _counts() -> dict:
+    return {k: w.launches for k, w in _wrappers().items()}
+
+
+def _grown(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+def _as_records(counts: dict) -> dict:
+    """Wrapper counts as the profiler sees them: K2 and K6 launch one
+    kernel (profiling.KERNEL_NAMES)."""
+    out = {}
+    for k, n in counts.items():
+        key = "K2/K6" if k in ("K2", "K6") else k
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def _records(call) -> dict:
+    """The port's kernels one call of ``call`` ran on the card, from the
+    profiler's kernel records."""
+    from gpu_matrix_inversion_tpu_torch.utils.profiling import (
+        device_kernels, kernel_launches)
+    return kernel_launches(device_kernels(call))
+
+
+def _nodes(last: int) -> dict:
+    """The port's kernels the ``last`` graphs used hold as nodes."""
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
+    from gpu_matrix_inversion_tpu_torch.utils.profiling import (
+        kernel_launches)
+    return kernel_launches([(k, n, 0.0) for k, n in
+                            graphs.kernel_nodes(last).items()])
+
+
+def _at_most(recorded: dict, want: dict) -> bool:
+    """The profiler can drop a kernel's record and never adds one: its
+    count of each kernel is at most the exact one."""
+    return all(n <= want.get(k, 0) for k, n in recorded.items())
+
+
+def _route_calls(cuda):
+    """Each compiled route at a small shape: (name, function name in
+    graphs.stats(), call)."""
+    from gpu_matrix_inversion_tpu_torch import (cholesky_inverse, inverse,
+                                                solve)
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix, well_conditioned_matrix)
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(hollow_random_matrix(1024, seed=5)).to(cuda)
+    h64 = torch.from_numpy(hollow_random_matrix(512, seed=6,
+                                                dtype=np.float64)).to(cuda)
+    dom = h64 + 2 * h64.abs().sum(dim=1).max() * torch.eye(
+        512, dtype=torch.float64, device=cuda)
+    small64 = torch.from_numpy(hollow_random_matrix(
+        128, seed=7, dtype=np.float64)).to(cuda)
+    batch = torch.from_numpy(np.stack([
+        hollow_random_matrix(1024, seed=20 + i) for i in range(3)])).to(cuda)
+    spd = torch.from_numpy(_spd(512, seed=8)).to(cuda)
+    wc = torch.from_numpy(well_conditioned_matrix(512, seed=9)).to(cuda)
+    rhs = torch.from_numpy(rng.standard_normal((1024, 4)).astype(
+        np.float32)).to(cuda)
+    return {
+        "blocked": ("blocked_inverse", lambda: inverse(h)),
+        "bf16 search": ("blocked_inverse",
+                        lambda: inverse(h, search_bf16=True)),
+        "FP64 tier": ("blocked_inverse", lambda: inverse(h64)),
+        "no-pivot FP64": ("blocked_inverse",
+                          lambda: inverse(dom, pivot=False)),
+        "per-matrix batch": ("blocked_inverse", lambda: inverse(batch)),
+        "LU getri": ("lu_inverse_fast", lambda: inverse(h, method="lu")),
+        "LU solve": ("lu_solve_fast", lambda: solve(h, rhs)),
+        "potri": ("cholesky_inverse", lambda: cholesky_inverse(spd)),
+        "Cholesky solve": ("cholesky_solve",
+                           lambda: solve(spd, rhs[:512], method="cholesky")),
+        "Newton-Schulz": ("newton_schulz_inverse",
+                          lambda: inverse(wc, method="ns")),
+        "spec": ("gauss_jordan_inverse", lambda: inverse(small64)),
+    }
+
+
+def _leaves(out) -> list:
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _assert_bits(got, want) -> None:
+    for g, w in zip(_leaves(got), _leaves(want), strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("route", [
+    "blocked", "bf16 search", "FP64 tier", "no-pivot FP64",
+    "per-matrix batch", "LU getri", "LU solve", "potri", "Cholesky solve",
+    "Newton-Schulz", "spec"])
+def test_replay_equals_eager(graph_cache, cuda, route):
+    """Eager (graphs.disabled()), the first call (the capture) and a
+    replay give the same bits, outputs and ok; stats() shows one capture,
+    then replays; a replay runs no kernel wrapper; the graphs hold the
+    port's kernels as the wrappers counted them eagerly, and the
+    profiler's records show none more often, eager or replayed."""
+    graphs = graph_cache
+    fn_name, call = _route_calls(cuda)[route]
+    with graphs.disabled():
+        call()                          # builds the kernels, fills caches
+        before = _counts()
+        eager = call()
+        eager_counts = _as_records(_grown(before))
+        assert _at_most(_records(call), eager_counts)
+    assert graphs.stats() == {}
+    first = call()
+    assert graphs.stats()[fn_name] == {"captures": 1, "replays": 1}
+    before = _counts()
+    replayed = call()
+    assert _grown(before) == {}
+    assert graphs.stats()[fn_name] == {"captures": 1, "replays": 2}
+    assert _nodes(graphs.cached()) == eager_counts
+    assert _at_most(_records(call), eager_counts)
+    assert _grown(before) == {}
+    _assert_bits(first, eager)
+    _assert_bits(replayed, eager)
+
+
+def test_lockstep_replay_equals_eager(graph_cache, cuda, monkeypatch):
+    """The lockstep route (MATINV_LOCKSTEP=1, K6) replayed bit for bit as
+    it runs eagerly, its graph holding K6's eager launches; the
+    environment variable is part of the key, so the per-matrix graph is
+    another."""
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    graphs = graph_cache
+    x = torch.from_numpy(np.stack([hollow_random_matrix(1024, seed=40 + i)
+                                   for i in range(4)])).to(cuda)
+    per_matrix = inverse(x)
+    monkeypatch.setenv("MATINV_LOCKSTEP", "1")
+    with graphs.disabled():
+        before = _counts()
+        eager = inverse(x)
+        eager_counts = _grown(before)
+    assert eager_counts.get("K6") == 8
+    inverse(x)
+    before = _counts()
+    replayed = inverse(x)
+    assert _grown(before) == {}
+    assert graphs.stats()["blocked_inverse"] == {"captures": 2,
+                                                 "replays": 3}
+    assert _nodes(1) == _as_records(eager_counts)
+    assert _at_most(_records(lambda: inverse(x)), _as_records(eager_counts))
+    _assert_bits(replayed, eager)
+    _assert_bits(replayed, per_matrix)
+
+
+def test_held_result_survives_later_replays(graph_cache, cuda):
+    """A, B, A: A's first result, still held, is unchanged by the replays
+    for B and A, and A's second result equals it."""
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    a = torch.from_numpy(hollow_random_matrix(1024, seed=50)).to(cuda)
+    b = torch.from_numpy(hollow_random_matrix(1024, seed=51)).to(cuda)
+    held, ok_held = inverse(a)
+    copy = held.clone()
+    inv_b, _ = inverse(b)
+    again, ok_again = inverse(a)
+    assert graph_cache.stats()["blocked_inverse"] == {"captures": 1,
+                                                      "replays": 3}
+    assert not torch.equal(inv_b, held)
+    _assert_bits(held, copy)
+    _assert_bits((again, ok_again), (held, ok_held))
+
+
+def test_capture_that_syncs_the_host_raises(graph_cache, cuda):
+    """A compiled body that reads a value on the host fails its capture:
+    the call raises, naming the function and its signature, and returns
+    no eager result; the cache holds nothing for it, and a later capture
+    works."""
+    graphs = graph_cache
+
+    @graphs.compiled
+    def syncs(x):
+        return x * float(x.sum())
+
+    with pytest.raises(graphs.GraphCaptureError,
+                       match=r"syncs\(x: \(8,\) float32 cuda:0\)"):
+        syncs(torch.ones(8, device=cuda))
+    assert "syncs" not in graphs.stats() and not graphs._cache.entries
+
+    @graphs.compiled
+    def doubles(x):
+        return 2 * x
+
+    assert torch.equal(doubles(torch.ones(8, device=cuda)),
+                       torch.full((8,), 2.0, device=cuda))
+    assert graphs.stats()["doubles"] == {"captures": 1, "replays": 1}
+
+
+def test_allocator_poison_reaches_the_graph_pool(graph_cache, cuda):
+    """poison_allocator fills the free blocks of the graphs' pool, where a
+    replay keeps its scratch, and a poisoned replay keeps its bits."""
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.utils import determinism
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    x = torch.from_numpy(hollow_random_matrix(1024, seed=60)).to(cuda)
+    first, _ = inverse(x)
+    torch.cuda.synchronize()
+    determinism.poison_allocator(cuda)
+    torch.cuda.synchronize()
+    ours = tuple(graph_cache._cache.pools[cuda])
+    pooled = [(b["address"], b["size"])
+              for seg in torch.cuda.memory_snapshot()
+              if tuple(seg["segment_pool_id"]) == ours
+              for b in seg["blocks"] if b["state"] == "inactive"]
+    assert pooled
+    for address, size in pooled:
+        assert bool((determinism._over(address, size, cuda) == 0xFF).all())
+    assert graph_cache.pool_bytes() >= sum(size for _, size in pooled)
+    again, _ = inverse(x)
+    _assert_bits(again, first)
+    same, _ = determinism.check_deterministic(inverse, x, runs=3)
+    assert same
+
+
+def test_nested_call_past_the_gate_runs_inline(graph_cache, cuda,
+                                               monkeypatch):
+    """A call past the gate runs eagerly, and so do the compiled calls it
+    makes (the per-matrix polish): nothing is captured."""
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    graphs = graph_cache
+    monkeypatch.setattr(graphs, "GATE_ELEMENTS", 1024 * 1024)
+    x = torch.from_numpy(np.stack([hollow_random_matrix(1024, seed=70 + i)
+                                   for i in range(2)])).to(cuda)
+    inv, ok = inverse(x)
+    assert bool(ok.all()) and graphs.stats() == {} and graphs.cached() == 0
+    with graphs.disabled():
+        _assert_bits(inverse(x), (inv, ok))
+
+
+def test_cache_keeps_the_graphs_used_last(graph_cache, cuda, monkeypatch):
+    """Past MAX_GRAPHS the graph used least recently goes; its signature
+    captures again."""
+    graphs = graph_cache
+    monkeypatch.setattr(graphs, "MAX_GRAPHS", 2)
+
+    @graphs.compiled
+    def twice(x):
+        return 2 * x
+
+    xs = [torch.ones(n, device=cuda) for n in (8, 16, 32)]
+    for x in xs[:2] + xs[:1] + xs[2:]:
+        _assert_bits(twice(x), 2 * x)
+    assert graphs.cached() == 2
+    assert graphs.stats()["twice"] == {"captures": 3, "replays": 4}
+    _assert_bits(twice(xs[0]), 2 * xs[0])          # kept: used third
+    _assert_bits(twice(xs[1]), 2 * xs[1])          # dropped: captured again
+    assert graphs.stats()["twice"] == {"captures": 4, "replays": 6}
+    assert graphs.cached() == 2
+
+
+def test_trace_of_a_replayed_route_shows_the_phase_ranges(graph_cache, cuda,
+                                                          tmp_path):
+    """trace() of a route whose graph is cached runs it eagerly, so the
+    operator trace holds the blocked driver's phase ranges (the FP32
+    kernel route's: the augmented matrix and K2's pivot search)."""
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.utils import profiling
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    x = torch.from_numpy(hollow_random_matrix(1024, seed=80)).to(cuda)
+    want = inverse(x)
+    inverse(x)
+    stats = graph_cache.stats()
+    with profiling.trace(str(tmp_path)):
+        got = inverse(x)
+    assert graph_cache.stats() == stats
+    _assert_bits(got, want)
+    text = "".join(f.read_text() for f in tmp_path.rglob("*.json"))
+    for name in ("make_augmented", "pivot"):
+        assert f"matinv::{name}" in text
