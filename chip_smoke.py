@@ -64,7 +64,16 @@ eagerly, at its first call and replayed, bit for bit, a replay running the
 port's kernels as the eager call does by the profiler's records, an A, B, A
 replay that leaves a held result unchanged, the first call's parts, the
 idle shares that set the graphs' size gate, and what the cache holds after
-the sweep's sizes.
+the sweep's sizes. The eleventh slice added kernels L1
+(``csrc/gauss_jordan.cu``) and L2 (``csrc/logical_panel.cu``), the JAX
+package's two device-side loops outside Pallas, which the FP64 routes run:
+phase 1 prints their geometries, phase 4f holds them to their twins (L1
+bit for bit up to the sign of a zero, L2's pivot rows and ok identical),
+phase 5b drives the FP64 paths (FP64 4096^2 and 8192^2, no-pivot 1024^2
+and 4096^2, an FP64 (64, 256^2) batch) with their launch counts and the
+plain loops' call counts at 0, phase 6 repeats them poisoned, phase 7
+times L1 and L2 beside their bounds, twins and (L1) torch.linalg.inv, and
+phase 8 runs the FP64 routes eager, at their first call and replayed.
 Each path runs with the kernels' launch counts zeroed and the graph cache
 emptied just before it, and the counts read just after: it must have
 launched its kernels. The wrappers count launches from the host, so a
@@ -115,7 +124,11 @@ def check(cond: bool, msg: str) -> None:
 # H100 architecture whitepaper: packed bf16x2 operations, each rounded, as
 # the bf16 pivot search rounds; a per-op-rounded rank-1 update cannot run
 # on the tensor cores), and HBM bandwidth.
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 133.8e12}
+# FP64 outside the tensor cores: 34 TFLOP/s (NVIDIA's H100 SXM data
+# sheet); L1 and L2 round a product and a difference apart, which the
+# tensor cores' FP64 matrix rate (67) cannot serve.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 133.8e12,
+              torch.float64: 34e12}
 # A bf16 matrix product can run on the tensor cores (dense peak, NVIDIA's
 # H100 architecture whitepaper).
 PEAK_BF16_TENSOR_FLOPS = 989e12
@@ -232,7 +245,8 @@ def main() -> None:
     from gpu_matrix_inversion_tpu_torch.models.newton_schulz import (
         newton_schulz_inverse)
     from gpu_matrix_inversion_tpu_torch.ops import (blocked, cholesky, fused,
-                                                    lockstep, lu, matmul)
+                                                    gauss_jordan, lockstep,
+                                                    lu, matmul)
     from gpu_matrix_inversion_tpu_torch.parallel import (
         launch, make_device_mesh, sharded, sharded_batched_inverse,
         sharded_blocked_inverse)
@@ -252,7 +266,13 @@ def main() -> None:
     wrappers = {"K1": fused.gj_kernel, "K2": blocked.panel_factor,
                 "K3": blocked.pivot_search, "K4": blocked.invert_small,
                 "K5": lu.small_lu, "K6": lockstep.lockstep_factor,
-                "K7": matmul.tiled_matmul}
+                "K7": matmul.tiled_matmul,
+                "L1": gauss_jordan._gauss_jordan_aug,
+                "L2": blocked._panel_pivots_logical}
+    # The plain loops L1 and L2 replace, counted by calls: on the card no
+    # path may run them.
+    twins = {"L1": gauss_jordan.gauss_jordan_twin,
+             "L2": blocked.logical_panel_twin}
 
     def zero_counts() -> None:
         """Zero the launch counts, and drop the compiled routes' graphs:
@@ -262,6 +282,8 @@ def main() -> None:
         the profiler's records)."""
         for fn in wrappers.values():
             fn.launches = 0
+        for fn in twins.values():
+            fn.calls = 0
         graphs.clear()
         blocked._plans.clear()    # so read_counts sees this path's clusters
 
@@ -274,6 +296,9 @@ def main() -> None:
                 f" C = {geo.cluster}")
         for k in expect:
             check(counts[k] > 0, f"{k} launched on {path}")
+        calls = {k: fn.calls for k, fn in twins.items()}
+        check(not any(calls.values()), f"{path}: the plain loops of L1 and "
+              f"L2 ran no time ({calls})")
         return counts
 
     def hold_records(what: str, got: dict, want: dict) -> None:
@@ -344,6 +369,21 @@ def main() -> None:
             f"cudaOccupancyMaxActiveClusters: {resident}")
         check(resident >= 1, f"K1 ({bsz}, {m}^2): the card admits the "
               f"cluster")
+
+    # L1's cluster branch at the FP64 tier's block (b = 256), the (64, 256^2)
+    # batch and spec's largest FP64 n; its grid branch and L2's grids.
+    for n, bsz in ((256, 1), (256, 64), (511, 1), (1000, 1)):
+        geo, resident = gauss_jordan.loop_plan(n, bsz, torch.float64, dev)
+        clusters[f"L1 ({bsz}, {n}^2) fp64"] = geo.ctas
+        log(f"  L1 ({bsz}, {n}^2) fp64: {geo.branch} of {geo.ctas} CTAs of "
+            f"{geo.rows} rows, {geo.smem} bytes of shared memory each"
+            + (f"; cudaOccupancyMaxActiveClusters: {resident}"
+               if resident is not None else ""))
+    for m, b in ((4096, 256), (8192, 256), (16384, 256)):
+        geo = blocked.logical_geometry(m, b, 8, gauss_jordan.sm_count(0))
+        clusters[f"L2 ({m}, {b}) fp64"] = geo.ctas
+        log(f"  L2 ({m}, {b}) fp64: a grid of {geo.ctas} CTAs of {geo.rows} "
+            f"rows (in {'shared' if geo.rows_shared else 'device'} memory)")
 
     # ---- phase 2: build report -----------------------------------------
     phase("phase 2: build report")
@@ -747,6 +787,116 @@ def main() -> None:
               f"{str(dtype)[6:]}: finite, within matmul.error_bound")
     del operands, out, wide
 
+    # ---- phase 4f: L1 and L2 against their twins ------------------------
+    # L1 (csrc/gauss_jordan.cu) and L2 (csrc/logical_panel.cu), the
+    # kernels of the JAX package's two device-side loops outside Pallas,
+    # against their plain twins on the card on the same inputs. Tolerance:
+    # none. The kernels take the twins' operations in the twins' order
+    # (x - f * v rounded twice, IEEE division, the first maximum as
+    # torch.argmax picks it), so L1's inverse equals the twin's bit for bit
+    # up to the sign of a zero with ok equal, and L2's pivot rows and ok
+    # are identical. On the singular and the NaN block only ok is held
+    # (the note of csrc/gauss_jordan.cu). L1 at n <= 511 runs its cluster
+    # branch, at 640 and 1000 its grid branch.
+    phase("phase 4f: L1 gauss_jordan and L2 logical_panel vs their twins")
+
+    def zero_sign_bits(x: torch.Tensor, y: torch.Tensor) -> tuple[int, int]:
+        """(elements whose bits differ other than by a zero's sign, zeros
+        that differ in their sign)."""
+        ints = torch.int64 if x.element_size() == 8 else torch.int32
+        differ = x.view(ints) != y.view(ints)
+        zeros = (x == 0) & (y == 0)
+        return int((differ & ~zeros).sum()), int((differ & zeros).sum())
+
+    l1_abs = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for n in (8, 100, 256, 511, 640, 1000):
+            seen = []
+            for bsz in (1, 64):
+                geo = gauss_jordan.loop_plan(n, bsz, dtype, dev)[0]
+                for pivot in (True, False):
+                    a = rng.standard_normal((bsz, n, n))
+                    if not pivot:
+                        a += n * np.eye(n)
+                    x = torch.from_numpy(a).to(dtype).to(dev)
+                    inv_k, ok_k = gauss_jordan._gauss_jordan_aug(
+                        x, pivot=pivot)
+                    torch.cuda.synchronize()
+                    inv_t, ok_t = gauss_jordan.gauss_jordan_twin(
+                        x, pivot=pivot)
+                    other, signed = zero_sign_bits(inv_k, inv_t)
+                    l1_abs = max(l1_abs, rel_err(inv_k, inv_t)[0])
+                    seen.append(f"B={bsz} {geo.branch} {geo.ctas} "
+                                f"{'pivot' if pivot else 'no pivot'}: "
+                                f"{signed} signed zeros")
+                    check(other == 0 and torch.equal(ok_k, ok_t)
+                          and bool(ok_k.all()),
+                          f"L1 ({bsz}, {n}^2) {str(dtype)[6:]} "
+                          f"{'pivot' if pivot else 'no pivot'}: the twin's "
+                          f"bits up to the sign of a zero, ok equal")
+                    del inv_k, inv_t, x
+            log(f"  L1 {str(dtype)[6:]} n = {n}: " + "; ".join(seen))
+    # Ties (integers in [-3, 3]), a singular block (a zero row: its pivot
+    # is exactly 0) and a NaN block beside a regular one.
+    for dtype in (torch.float64, torch.float32):
+        for n in (256, 640):
+            a = rng.integers(-3, 4, (4, n, n)).astype(np.float64)
+            x = torch.from_numpy(a).to(dtype).to(dev)
+            inv_k, ok_k = gauss_jordan._gauss_jordan_aug(x, pivot=True)
+            inv_t, ok_t = gauss_jordan.gauss_jordan_twin(x, pivot=True)
+            other, signed = zero_sign_bits(inv_k, inv_t)
+            check(other == 0 and torch.equal(ok_k, ok_t),
+                  f"L1 (4, {n}^2) {str(dtype)[6:]}, integers in [-3, 3]: "
+                  f"the twin's bits up to the sign of {signed} zeros, ok "
+                  f"equal ({ok_k.tolist()})")
+            a = rng.standard_normal((3, n, n))
+            a[1, 5] = 0.0
+            a[2, n // 2, n // 3] = np.nan
+            x = torch.from_numpy(a).to(dtype).to(dev)
+            ok_k = gauss_jordan._gauss_jordan_aug(x, pivot=True)[1]
+            ok_t = gauss_jordan.gauss_jordan_twin(x, pivot=True)[1]
+            check(torch.equal(ok_k, ok_t) and ok_k.tolist() == [True, False,
+                                                                 False],
+                  f"L1 (3, {n}^2) {str(dtype)[6:]}: a regular, a singular "
+                  f"and a NaN block, ok equal to the twin's {ok_t.tolist()}")
+            del inv_k, inv_t, x
+    l2_mismatch = 0
+    for m, b, dtype in ((512, 64, torch.float64), (4096, 256, torch.float64),
+                        (8192, 256, torch.float64),
+                        (16384, 256, torch.float64),
+                        (65600, 32, torch.float32)):
+        geo = blocked.logical_geometry(m, b, dtype.itemsize,
+                                       gauss_jordan.sm_count(0))
+        strip = torch.from_numpy(rng.standard_normal((m, b))).to(dtype).to(
+            dev)
+        seen = []
+        for mask in ("empty", "half"):
+            for pivot in (True, False):
+                used = torch.zeros(m, dtype=torch.int32, device=dev)
+                kb = 0
+                if mask == "half" and pivot:
+                    used[torch.from_numpy(rng.permutation(m)[:m // 2]).to(
+                        dev)] = 1
+                elif mask == "half":      # a later panel's mask
+                    used[:m // 2] = 1
+                    kb = m // 2
+                p_k, ok_k = blocked._panel_pivots_logical(strip, used, kb,
+                                                          b=b, pivot=pivot)
+                torch.cuda.synchronize()
+                p_t, ok_t = blocked.logical_panel_twin(strip, used, kb, b=b,
+                                                       pivot=pivot)
+                l2_mismatch += int((p_k != p_t).sum())
+                seen.append(f"{mask} {'pivot' if pivot else 'no pivot'} ok "
+                            f"{bool(ok_k)}")
+                check(torch.equal(p_k, p_t) and bool(ok_k) == bool(ok_t),
+                      f"L2 ({m}, {b}) {str(dtype)[6:]}, {mask} mask, "
+                      f"{'pivot' if pivot else 'no pivot'}: pivot rows and "
+                      f"ok identical to the twin's")
+        log(f"  L2 ({m}, {b}) {str(dtype)[6:]} on {geo.ctas} CTAs of "
+            f"{geo.rows} rows ({'shared' if geo.rows_shared else 'device'}"
+            f" memory, {geo.smem} bytes shared): " + "; ".join(seen))
+    del strip, used
+
     # ---- phase 5: the main path through the public API ------------------
     phase("phase 5: main path (matrix_inv_32 / inverse on cuda)")
     zero_counts()
@@ -803,13 +953,22 @@ def main() -> None:
     # (1.8e-5 at 4096^2); the same algorithm in FP64 should land near
     # 150 * 2.2e-16 = 3e-14 before its polish step, so 1e-12 leaves two
     # orders of headroom and still fails any FP32-grade result.
-    phase("phase 5b: FP64 (K3 f32-search tier) and no-pivot FP64")
+    # Each FP64 path runs on the kernels alone: the f32-search tier (n up
+    # to 4096 at b = 256) K3 and L1 once a panel, the logical tier (FP64
+    # past it, and every no-pivot FP64 call from 512) L2 and L1 once a
+    # panel, spec (a batch of FP64 256^2) one L1 launch; the plain loops
+    # run no time (read_counts).
+    phase("phase 5b: FP64 (K3 f32-search and L2 logical tiers, L1 block "
+          "inverses) and no-pivot FP64")
     a4k64 = hollow_random_matrix(4096, seed=1, dtype=np.float64)
     zero_counts()
     t0 = time.perf_counter()
     out64 = matrix_inversion_fp64(a4k64.reshape(-1), 4096, device="cuda")
     fp64_s = time.perf_counter() - t0
-    counts_fp64 = read_counts("matrix_inversion_fp64 4096^2", ("K3",))
+    counts_fp64 = read_counts("matrix_inversion_fp64 4096^2", ("K3", "L1"))
+    check(counts_fp64["K3"] == 16 and counts_fp64["L1"] == 16
+          and counts_fp64["L2"] == 0, "FP64 4096^2: 16 K3 and 16 L1 "
+          "launches, no L2")
     r64 = relative_residual(a4k64, out64.reshape(4096, 4096))
     log(f"  n=4096 FP64: residual {r64:.3e} ({fp64_s:.2f} s host clock)")
     check(out64.size == 4096 * 4096 and r64 <= 1e-12,
@@ -820,11 +979,52 @@ def main() -> None:
     dom += 2.0 * np.abs(dom).sum(axis=1).max() * np.eye(n_np)
     zero_counts()
     out_np = matrix_inversion_no_pivots(dom.reshape(-1), n_np, device="cuda")
-    read_counts("matrix_inversion_no_pivots 1024^2 (logical panel)", ())
+    counts_np = read_counts("matrix_inversion_no_pivots 1024^2 (logical "
+                            "tier)", ("L1", "L2"))
+    check(counts_np["L2"] == 4 and counts_np["L1"] == 4,
+          "no-pivot FP64 1024^2: 4 L2 and 4 L1 launches")
     r_np = relative_residual(dom, out_np.reshape(n_np, n_np))
     log(f"  n=1024 no-pivot FP64, diagonally dominant: residual {r_np:.3e}")
     check(out_np.size == n_np * n_np and r_np <= 1e-12,
           "1024 no-pivot FP64 residual <= 1e-12")
+    # FP64 8192^2 (b * m past 128 * 8192: the logical tier), no-pivot FP64
+    # 4096^2 (diagonally dominant) and spec on a (64, 256^2) FP64 batch;
+    # residuals in float64 on the card.
+    fp64_paths = {}
+    a8k64 = hollow_random_matrix(8192, seed=3, dtype=np.float64)
+    dom4k = hollow_random_matrix(4096, seed=6, dtype=np.float64)
+    dom4k += 2.0 * np.abs(dom4k).sum(axis=1).max() * np.eye(4096)
+    batch64 = np.stack([hollow_random_matrix(256, seed=s, dtype=np.float64)
+                        for s in range(64)])
+    for name, fn, a_np, want in (
+            ("matrix_inversion_fp64 8192^2",
+             lambda: matrix_inversion_fp64(a8k64.reshape(-1), 8192,
+                                           device="cuda"),
+             a8k64, {"L1": 32, "L2": 32, "K3": 0}),
+            ("matrix_inversion_no_pivots 4096^2",
+             lambda: matrix_inversion_no_pivots(dom4k.reshape(-1), 4096,
+                                                device="cuda"),
+             dom4k, {"L1": 16, "L2": 16, "K3": 0}),
+            ("inverse on a (64, 256^2) FP64 batch (spec)",
+             lambda: inverse(torch.from_numpy(batch64).to(dev))[0],
+             batch64, {"L1": 1, "L2": 0, "K3": 0})):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts(name, ("L1",))
+        fp64_paths[name] = counts
+        check({k: counts[k] for k in want} == want,
+              f"{name}: launches {want}")
+        x_dev = (out if isinstance(out, torch.Tensor)
+                 else torch.from_numpy(out).to(dev)).reshape(a_np.shape)
+        res = float(batched_residual(torch.from_numpy(a_np).to(dev),
+                                     x_dev).max())
+        log(f"  {name}: residual {res:.3e} ({secs:.2f} s host clock, the "
+            f"first call)")
+        check(res <= 1e-12, f"{name}: residual <= 1e-12")
+        del out, x_dev
     hollow64 = hollow_random_matrix(n_np, seed=5, dtype=np.float64)
     check(matrix_inversion_no_pivots(hollow64.reshape(-1), n_np,
                                      device="cuda").size == 0,
@@ -1276,6 +1476,12 @@ def main() -> None:
     g7_bf16 = [g.bfloat16() for g in g7]
     xs16 = lockstep_in[(16, 1024)]
     x4k64_dev = torch.from_numpy(a4k64).to(dev)
+    x8k64_dev = torch.from_numpy(a8k64).to(dev)
+    dom4k_dev = torch.from_numpy(dom4k).to(dev)
+    b64_dev = torch.from_numpy(batch64).to(dev)
+    x1k64 = torch.from_numpy(rng.standard_normal((1, 1000, 1000))).to(dev)
+    s8k = torch.from_numpy(rng.standard_normal((8192, 256))).to(dev)
+    u8k = torch.zeros(8192, dtype=torch.int32, device=dev)
 
     def lockstep_inverse():
         with lockstep_on():
@@ -1297,6 +1503,16 @@ def main() -> None:
         ("blocked 4096^2 refined", lambda: inverse(x4k), 3),
         ("split 20000^2", lambda: inverse(x20), 2),
         ("FP64 4096^2", lambda: inverse(x4k64_dev), 2),
+        ("L1 (64, 256^2) fp64",
+         lambda: gauss_jordan._gauss_jordan_aug(b64_dev, pivot=True), 3),
+        ("L1 (1, 1000^2) fp64 (grid branch)",
+         lambda: gauss_jordan._gauss_jordan_aug(x1k64, pivot=True), 3),
+        ("L2 (8192, 256) fp64",
+         lambda: blocked._panel_pivots_logical(s8k, u8k, 0, b=256,
+                                               pivot=True), 3),
+        ("FP64 8192^2", lambda: inverse(x8k64_dev), 2),
+        ("no-pivot FP64 4096^2", lambda: inverse(dom4k_dev, pivot=False), 2),
+        ("spec FP64 (64, 256^2)", lambda: inverse(b64_dev), 3),
         ("bf16 search 4096^2", lambda: inverse(x4k, search_bf16=True), 3),
         ("LU getri 4096^2", lambda: inverse(x4k, method="lu"), 3),
         ("LU solve 4096^2 x 16", lambda: solve(x4k, rhs), 3),
@@ -1701,6 +1917,43 @@ def main() -> None:
     time_call("blocked_32768_group24",
               lambda: blocked.blocked_inverse(x32, group_size=24), 1)
     del x32
+    # L1 at the FP64 tier's pivot block (1, 256^2) and the (64, 256^2)
+    # batch, and its grid branch at (1, 1000^2); L2 at the FP64 8192^2
+    # panel (8192, 256) and the no-pivot 4096^2 one (4096, 256), by CUDA
+    # events and the profiler's device time, beside the twins and
+    # (L1) torch.linalg.inv on the same blocks, which the port never calls.
+    b1_dev = b64_dev[:1].contiguous()
+    l1_cases = {"1x256": b1_dev, "64x256": b64_dev, "1x1000": x1k64}
+    for key, xs in l1_cases.items():
+        iters = 20 if key == "1x256" else 3
+        times[f"l1_{key}_ms"] = events_ms(
+            lambda: gauss_jordan._gauss_jordan_aug(xs, pivot=True),
+            iters=iters)
+        times[f"l1_{key}_device_ms"] = device_ms(
+            lambda: gauss_jordan._gauss_jordan_aug(xs, pivot=True), iters,
+            "gauss_jordan")
+        times[f"l1_twin_{key}_ms"] = events_ms(
+            lambda: gauss_jordan.gauss_jordan_twin(xs, pivot=True), iters=1)
+        times[f"l1_library_inv_{key}_ms"] = events_ms(
+            lambda: torch.linalg.inv(xs), iters=iters)
+        times[f"l1_library_inv_{key}_device_ms"] = device_ms(
+            lambda: torch.linalg.inv(xs), iters)
+    s4k = s8k[:4096].contiguous()
+    u4k = torch.zeros(4096, dtype=torch.int32, device=dev)
+    u4k[:2048] = 1                   # the no-pivot tier's 9th panel
+    for key, (st, us, kb, pivot) in {
+            "8192": (s8k, u8k, 0, True),
+            "4096_no_pivot": (s4k, u4k, 2048, False)}.items():
+        times[f"l2_{key}_ms"] = events_ms(
+            lambda: blocked._panel_pivots_logical(st, us, kb, b=256,
+                                                  pivot=pivot), iters=10)
+        times[f"l2_{key}_device_ms"] = device_ms(
+            lambda: blocked._panel_pivots_logical(st, us, kb, b=256,
+                                                  pivot=pivot), 10,
+            "logical_panel")
+        times[f"l2_twin_{key}_ms"] = events_ms(
+            lambda: blocked.logical_panel_twin(st, us, kb, b=256,
+                                               pivot=pivot), iters=2)
     rates = {
         "k1_batch4096_inv_per_s": 4096 / (times["k1_batch4096_ms"] / 1e3),
         "k1_twin_batch4096_inv_per_s":
@@ -1712,6 +1965,8 @@ def main() -> None:
             times["k3_panel_4096_fp32_ms"] * 1e3 / 128,
         "k3_us_per_pivot_step_20032_bf16":
             times["k3_panel_20032_bf16_ms"] * 1e3 / 64,
+        "l1_us_per_step_1x256": times["l1_1x256_ms"] * 1e3 / 256,
+        "l2_us_per_step_8192": times["l2_8192_ms"] * 1e3 / 256,
     }
     for key, val in {**times, **rates}.items():
         shown = "not measured" if val is None else f"{val:.4f}"
@@ -1748,6 +2003,27 @@ def main() -> None:
     k1_one = bound(2 * 256 ** 3, 2 * 256 * 256 * 4 + 256 * 4 + 4)
     log(f"  K1 bound at (512, 256^2): {k1_512[0]:.6f} ms ({k1_512[1]}); at "
         f"(1, 256^2): {k1_one[0]:.6f} ms ({k1_one[1]})")
+    # L1: 2 n^3 a matrix at the FP64 peak, or its input and output once.
+    # L2: what this run's data needs, each step's update of the rows that
+    # can still be chosen across the columns right of the step (2
+    # operations an element; with an empty mask m - r - 1 rows after step
+    # r), or the strip and mask read once.
+    def l1_bound(bsz, n):
+        return bound(bsz * 2 * n ** 3, bsz * (2 * n * n * 8 + 4),
+                     torch.float64)
+
+    def l2_bound(m, b, unused):
+        ops = sum(2 * (unused - r - 1) * (b - r - 1) for r in range(b))
+        return bound(ops, m * b * 8 + m * 4 + b * 4 + 4, torch.float64)
+
+    bounds["L1"] = l1_bound(1, 256)
+    bounds["L2"] = l2_bound(8192, 256, 8192)
+    l1_64 = l1_bound(64, 256)
+    l1_1000 = l1_bound(1, 1000)
+    l2_4096 = l2_bound(4096, 256, 2048)
+    log(f"  L1 bound at (64, 256^2): {l1_64[0]:.6f} ms ({l1_64[1]}); at "
+        f"(1, 1000^2): {l1_1000[0]:.6f} ms ({l1_1000[1]}); L2 at (4096, "
+        f"256) with 2048 rows used: {l2_4096[0]:.6f} ms ({l2_4096[1]})")
     k7_bf16 = bound(2 * 4096 ** 3, 3 * 4096 * 4096 * 2,
                     peak=PEAK_BF16_TENSOR_FLOPS)
     log(f"  K7 bound at 4096^3 bf16 (tensor cores): {k7_bf16[0]:.6f} ms "
@@ -1870,6 +2146,55 @@ def main() -> None:
          "plain_ms_bf16": times["k7_twin_4096_bfloat16_ms"],
          "bound_ms_bf16": k7_bf16[0], "bound_by_bf16": k7_bf16[1],
          "library_ms_bf16": times["k7_library_matmul_4096_bfloat16_ms"]},
+        # L1's record is the FP64 tier's (1, 256^2) pivot block; the
+        # (64, 256^2) batch and the grid branch at (1, 1000^2) in the
+        # *_64x256 and *_1x1000 keys. Launches: FP64 4096^2 (16 blocks);
+        # the other FP64 paths in launches_*.
+        {**record("L1 gauss_jordan", "gauss_jordan.cu", "gauss_jordan.py:98",
+                  counts_fp64["L1"], l1_abs, times["l1_1x256_ms"],
+                  times["l1_twin_1x256_ms"],
+                  times["l1_library_inv_1x256_ms"]),
+         "kernel_device_ms": times["l1_1x256_device_ms"],
+         "library_device_ms": times["l1_library_inv_1x256_device_ms"],
+         "us_per_step": rates["l1_us_per_step_1x256"],
+         "cluster": clusters["L1 (1, 256^2) fp64"],
+         **{f"{k}_{key}": times[f"l1_{t}{key}_{u}"]
+            for key in ("64x256", "1x1000")
+            for k, t, u in (("ms", "", "ms"),
+                            ("kernel_device_ms", "", "device_ms"),
+                            ("plain_ms", "twin_", "ms"),
+                            ("library_ms", "library_inv_", "ms"),
+                            ("library_device_ms", "library_inv_",
+                             "device_ms"))},
+         "bound_ms_64x256": l1_64[0], "bound_by_64x256": l1_64[1],
+         "bound_ms_1x1000": l1_1000[0], "bound_by_1x1000": l1_1000[1],
+         "launches_fp64_8192": fp64_paths["matrix_inversion_fp64 8192^2"][
+             "L1"],
+         "launches_no_pivot_1024": counts_np["L1"],
+         "launches_no_pivot_4096":
+             fp64_paths["matrix_inversion_no_pivots 4096^2"]["L1"],
+         "launches_spec_64x256": fp64_paths[
+             "inverse on a (64, 256^2) FP64 batch (spec)"]["L1"]},
+        # L2's record is the FP64 8192^2 panel (8192, 256), its launches
+        # that path's; max_abs_err counts pivot rows that differ from the
+        # twin's over phase 4f. No PyTorch call returns a panel's pivot
+        # rows under a used mask: library_ms is null.
+        {**record("L2 logical_panel", "logical_panel.cu", "blocked.py:675",
+                  fp64_paths["matrix_inversion_fp64 8192^2"]["L2"],
+                  l2_mismatch, times["l2_8192_ms"], times["l2_twin_8192_ms"],
+                  None),
+         "kernel_device_ms": times["l2_8192_device_ms"],
+         "us_per_step": rates["l2_us_per_step_8192"],
+         "grid": clusters["L2 (8192, 256) fp64"],
+         "ms_4096_no_pivot": times["l2_4096_no_pivot_ms"],
+         "kernel_device_ms_4096_no_pivot":
+             times["l2_4096_no_pivot_device_ms"],
+         "plain_ms_4096_no_pivot": times["l2_twin_4096_no_pivot_ms"],
+         "bound_ms_4096_no_pivot": l2_4096[0],
+         "bound_by_4096_no_pivot": l2_4096[1],
+         "launches_no_pivot_1024": counts_np["L2"],
+         "launches_no_pivot_4096":
+             fp64_paths["matrix_inversion_no_pivots 4096^2"]["L2"]},
     ]
     nccl_world.close()
 
@@ -1961,6 +2286,10 @@ def main() -> None:
 
     x4k_b = torch.from_numpy(hollow_random_matrix(4096, seed=2)).to(dev)
     x4k64_b = x4k_b.double()
+    x8k64_b = torch.from_numpy(hollow_random_matrix(
+        8192, seed=4, dtype=np.float64)).to(dev)
+    dom4k_b = dom4k_dev.flip(0).flip(1)      # still diagonally dominant
+    b64_b = b64_dev.flip(0)
     spd4k_b = spd(4096, 2)
     xwc_b = torch.from_numpy(well_conditioned_matrix(4096, seed=2)).to(dev)
     rhs_b = rhs.flip(0)
@@ -2003,6 +2332,13 @@ def main() -> None:
         ("Newton-Schulz 4096^2", ("newton_schulz_inverse",),
          lambda: inverse(xwc, method="ns"),
          lambda: inverse(xwc_b, method="ns"), 1),
+        ("FP64 8192^2", ("blocked_inverse",), lambda: inverse(x8k64_dev),
+         lambda: inverse(x8k64_b), 1),
+        ("no-pivot FP64 4096^2", ("blocked_inverse",),
+         lambda: inverse(dom4k_dev, pivot=False),
+         lambda: inverse(dom4k_b, pivot=False), 1),
+        ("spec FP64 (64, 256^2)", ("gauss_jordan_inverse",),
+         lambda: inverse(b64_dev), lambda: inverse(b64_b), 3),
         ("spec FP64 256^2", ("gauss_jordan_inverse",),
          lambda: inverse(x256), lambda: inverse(x256_b), 3),
     ]

@@ -94,8 +94,9 @@ def matrix_inversion_fp32(flat, order: int, *, verbose: bool = False,
 
 def matrix_inversion_fp64(flat, order: int, *, device="cuda") -> np.ndarray:
     """Reference ``matrix_inversion_FP64()`` (headers.h:9). n < 512 runs
-    the spec; larger n the blocked route's FP64 tiers (K3's f32 search,
-    or the logical panel past its reach)."""
+    the spec (kernel L1); larger n the blocked route's FP64 tiers (K3's
+    f32 search, or L2's logical panel past its reach, each pivot block
+    inverted by L1)."""
     return _invert_flat(flat, order, np.float64, pivot=True, device=device)
 
 

@@ -3,11 +3,13 @@
 Port of ``gpu_matrix_inversion_tpu/models/solver.py``. One entry point that
 routes to
 
-- ``spec``     plain-torch Gauss-Jordan (executable spec; any device)
+- ``spec``     Gauss-Jordan (the executable spec: kernel L1 on the card,
+               the plain loop on the CPU)
 - ``fused``    kernel K1, the whole [A|I] system in one launch per batch
                (small N and batched workloads)
 - ``blocked``  blocked Gauss-Jordan: panel kernels (K2, or K3 + K4 on the
                split path) + GEMMs; fp64 through K3's f32-search tier
+               or L2's logical tier, each pivot block inverted by L1
 - ``lu``       LU factorization (K3 + K5) + getri, and :func:`solve`'s
                triangular solves
 - ``cholesky`` potrf + potri for SPD input (library calls, as the

@@ -18,10 +18,12 @@ same elimination is regrouped panel by panel:
      block, and one GEMM assembles C from it;
    - fp64 where the f32 search reaches (b*m <= 128*8192), the f32-search
      tier: K3 on the strip cast to fp32, the pivot block inverted in fp64
-     by the plain spec;
+     by kernel L1 (``csrc/gauss_jordan.cu``, the spec's loop);
    - everything else (fp64 past that, fp64 without pivoting, fp32 past
-     m = 65536): the plain logical panel, as the reference runs it
-     without a Pallas kernel.
+     m = 65536): the logical panel, which the reference runs as a
+     device-side loop without a Pallas kernel: kernel L2
+     (``csrc/logical_panel.cu``) finds the pivot rows, L1 inverts the
+     pivot block.
 2. *Group composites*: ``group`` consecutive panels are factored against an
    [O | G] working set (O = the group's columns, G = identity-probe columns
    injected panel by panel); afterwards G - E^T is the group's composite
@@ -48,10 +50,13 @@ import dataclasses
 
 import torch
 
-from gpu_matrix_inversion_tpu_torch.ops.fused import (SHARED_BYTES, _fms,
+from gpu_matrix_inversion_tpu_torch.ops.fused import (H100_SMS,
+                                                      SHARED_BYTES, _fms,
                                                       _packed_argmax,
                                                       _round_up)
-from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import _gauss_jordan_aug
+from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
+    LoopGeometry, _gauss_jordan_aug, grid_geometry, grid_props_bytes,
+    sm_count)
 from gpu_matrix_inversion_tpu_torch.ops.refine import newton_schulz_refine
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
 from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
@@ -586,14 +591,14 @@ def _update(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         out.addmm_(a, b)
 
 
-def _panel_pivots_logical(strip: torch.Tensor, used: torch.Tensor, kb: int,
-                          *, b: int, pivot: bool):
-    """Plain swap-free panel pivot search in any dtype (blocked.py:675-712):
-    b Gauss-Jordan steps on the (m, b) strip under the used-row mask, the
-    full-precision first max over unused rows. The reference runs it
-    without a Pallas kernel (fp64 past the f32-search tier, fp64 without
-    pivoting, fp32 past m = 65536). ``used`` is read only; returns
-    ``(pivrows (b,) int32, ok)``."""
+def logical_panel_twin(strip: torch.Tensor, used: torch.Tensor, kb: int,
+                       *, b: int, pivot: bool):
+    """Plain swap-free panel pivot search in any dtype (blocked.py:675-712),
+    L2's twin: b Gauss-Jordan steps on the (m, b) strip under the used-row
+    mask, the full-precision first max over unused rows. ``used`` is read
+    only; returns ``(pivrows (b,) int32, ok)``. ``calls`` counts its
+    calls."""
+    logical_panel_twin.calls += 1
     dev = strip.device
     w = strip.clone()
     used = used != 0
@@ -619,6 +624,71 @@ def _panel_pivots_logical(strip: torch.Tensor, used: torch.Tensor, kb: int,
     return pivrows, ok
 
 
+logical_panel_twin.calls = 0
+
+
+def logical_geometry(m: int, b: int, itemsize: int,
+                     sms: int = H100_SMS) -> LoopGeometry:
+    """L2's persistent grid over an (m, b) strip: a CTA per 32 rows, at most
+    one per SM, each CTA's rows in its shared memory where they fit
+    (:func:`~gpu_matrix_inversion_tpu_torch.ops.gauss_jordan.
+    grid_geometry`): (8192, 256) fp64 on 131 CTAs of 63 rows in shared
+    memory, (16384, 256) in a device workspace, (65600, 32) fp32 in shared
+    memory."""
+    return grid_geometry(m, b, itemsize, ints=None, sms=sms)
+
+
+def _panel_pivots_logical(strip: torch.Tensor, used: torch.Tensor, kb: int,
+                          *, b: int, pivot: bool):
+    """L2 (``csrc/logical_panel.cu``): the pivot rows and ok of the (m, b)
+    ``strip`` under the ``used`` mask, those of :func:`logical_panel_twin`.
+    The reference runs this loop without a Pallas kernel (fp64 past the
+    f32-search tier, fp64 without pivoting, fp32 past m = 65536).
+
+    A CPU tensor runs the twin; a CUDA tensor (fp64 or fp32, unit column
+    stride) launches L2, one persistent grid (:func:`logical_geometry`).
+    Returns ``(pivrows (b,) int32, ok)``."""
+    m = strip.shape[0]
+    if strip.ndim != 2 or strip.shape[1] != b or used.shape != (m,):
+        raise ValueError(f"L2 takes an (m, {b}) strip and an (m,) mask, got "
+                         f"{tuple(strip.shape)} and {tuple(used.shape)}")
+    if strip.device.type == "cpu":
+        return logical_panel_twin(strip, used, kb, b=b, pivot=pivot)
+    if strip.device.type != "cuda":
+        raise ValueError(f"L2 runs on cuda (or its twin on cpu), not "
+                         f"{strip.device}")
+    if strip.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"L2 takes float32 or float64, got {strip.dtype}")
+    if strip.stride(1) != 1:
+        strip = strip.contiguous()
+    dev = strip.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    geo = logical_geometry(m, b, strip.element_size(), sm_count(index))
+    lib = cuda_build.load()
+    used32 = used.to(torch.int32).contiguous()
+    pivrows = torch.empty(b, dtype=torch.int32, device=dev)
+    ok = torch.empty(1, dtype=torch.int32, device=dev)
+    work = (None if geo.rows_shared else
+            torch.empty((m, b), dtype=strip.dtype, device=dev))
+    props = torch.empty(grid_props_bytes(geo.ctas, b, strip.element_size()),
+                        dtype=torch.uint8, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = lib.matinv_logical_panel(
+        strip.data_ptr(), strip.stride(0), used32.data_ptr(),
+        pivrows.data_ptr(), ok.data_ptr(),
+        None if work is None else work.data_ptr(), props.data_ptr(),
+        bar.data_ptr(), m, b, int(kb), int(strip.dtype == torch.float64),
+        int(pivot), geo.ctas, int(geo.rows_shared), geo.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "L2 logical_panel")
+    if not cuda_build.capturing():   # a graph's record is no launch
+        _panel_pivots_logical.launches += 1
+    return pivrows, ok[0] != 0
+
+
+_panel_pivots_logical.launches = 0
+
+
 def _factor_panel(strip: torch.Tensor, kb: int, used: torch.Tensor, *,
                   b: int, pivot: bool, use_kernels: bool, search_bf16: bool,
                   emit: bool, search_f32: bool, precision: str):
@@ -628,9 +698,8 @@ def _factor_panel(strip: torch.Tensor, kb: int, used: torch.Tensor, *,
     On the fused route C^T comes from K2. Otherwise it is assembled from
     the (b, b) pivot-block inverse: C = (E - L_masked) @ D^-1 - E, one
     (m, b) @ (b, b) GEMM at :func:`_mm`'s precision. The phase ranges
-    (``utils/profiling.phase``) mark the pivot search (K2, K3, the logical
-    panel) as ``pivot`` and the pivot-block inverse (K4, the plain fp64
-    Gauss-Jordan) as ``row``.
+    (``utils/profiling.phase``) mark the pivot search (K2, K3, L2) as
+    ``pivot`` and the pivot-block inverse (K4, L1) as ``row``.
     """
     m = strip.shape[0]
     dev = strip.device

@@ -58,6 +58,16 @@ SIGNATURES = {
     "matinv_tiled_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # blocks, smids, smem_bytes (int *), stream
     "matinv_poison_shared": (_I, _P, _P, _P),
+    # a, inv, ok, work, props, bar, flags, batch, n, fp64, pivot, branch,
+    # ctas, rows_shared, smem, stream
+    "matinv_gauss_jordan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P),
+    # n, fp64, cluster, smem, clusters (int *)
+    "matinv_gauss_jordan_clusters": (_I, _I, _I, _I, _P),
+    # strip, lds, used, pivrows, ok, work, props, bar, m, b, kb, fp64,
+    # pivot, ctas, rows_shared, smem, stream
+    "matinv_logical_panel": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -202,7 +202,10 @@ KERNEL_NAMES = {"K1": ("fused_gj_regs_kernel", "fused_gj_cluster_kernel"),
                 "K2/K6": ("panel_factor_cluster_kernel",),
                 "K3": ("pivot_search_cluster_kernel",),
                 "K4": ("small_inv_kernel",), "K5": ("small_lu_kernel",),
-                "K7": ("matmul_f32_kernel", "matmul_bf16_kernel")}
+                "K7": ("matmul_f32_kernel", "matmul_bf16_kernel"),
+                "L1": ("gauss_jordan_cluster_kernel",
+                       "gauss_jordan_grid_kernel"),
+                "L2": ("logical_panel_kernel",)}
 
 
 def kernel_launches(rows) -> dict:

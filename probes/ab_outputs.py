@@ -29,8 +29,12 @@ one card. It prints and writes to ``--out`` a JSON record:
   (4, 128, 2048); K7 in
   fp32 and bf16 at 4096^3 and 300 x 200 x 150; ``inverse(method="lu")``
   and ``inverse(search_bf16=True)`` on the 4096^2 hollow matrix of seed
-  1; and ``inverse`` on the 20000^2 hollow matrix of seed 20000 (the
-  split path).
+  1; ``inverse`` on the 20000^2 hollow matrix of seed 20000 (the
+  split path); and the FP64 routes: ``matrix_inversion_fp64`` on the
+  4096^2 hollow matrix of seed 1 (the f32-search tier),
+  ``matrix_inversion_no_pivots`` on the 1024^2 hollow matrix of seed 5
+  made diagonally dominant (the logical tier), and ``inverse`` on a
+  (64, 256^2) FP64 batch of hollow matrices of seeds 0 .. 63 (spec).
 - ``ms``: each kernel at its main path's shape (``chip_smoke.py`` phase
   7's) by CUDA events, mean of many calls after a warm-up, and its own
   kernel's device time per call from ``torch.profiler`` (``*_device``;
@@ -38,7 +42,8 @@ one card. It prints and writes to ``--out`` a JSON record:
   (4096, 128^2) and (512, 256^2)) and K4;
   the summed device time of one call of the blocked 4096^2 inverse, raw
   and refined, of LU getri and of Newton-Schulz at 4096^2, and each of
-  those calls by CUDA events (mean of three, after a warm-up).
+  those calls by CUDA events (mean of three, after a warm-up); the same
+  for the three FP64 calls above (through ``inverse`` on card tensors).
 
 ``--compare`` prints, for each output, whether the two records hash it
 alike, else whether its values agree up to the sign of zeros (and how
@@ -104,7 +109,9 @@ def _compare_bits(first: dict, second: dict) -> str:
 
 
 def measure() -> dict:
-    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch import (inverse,
+                                                matrix_inversion_fp64,
+                                                matrix_inversion_no_pivots)
     from gpu_matrix_inversion_tpu_torch.ops import (blocked, fused, lockstep,
                                                     lu, matmul)
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
@@ -157,6 +164,13 @@ def measure() -> dict:
     x4k = torch.from_numpy(hollow_random_matrix(4096, seed=1)).to(dev)
     x20k = torch.from_numpy(hollow_random_matrix(20000, seed=20000)).to(dev)
     wc4k = torch.from_numpy(well_conditioned_matrix(4096, seed=4096)).to(dev)
+    a4k64 = hollow_random_matrix(4096, seed=1, dtype=np.float64)
+    dom1k = hollow_random_matrix(1024, seed=5, dtype=np.float64)
+    dom1k += 2.0 * np.abs(dom1k).sum(axis=1).max() * np.eye(1024)
+    batch64 = torch.from_numpy(np.stack([
+        hollow_random_matrix(256, seed=s, dtype=np.float64)
+        for s in range(64)])).to(dev)
+    x4k64, dom1k_dev = (torch.from_numpy(a).to(dev) for a in (a4k64, dom1k))
 
     def k4_batch(x):
         inv, ok = blocked.invert_small(x, pivot=True)
@@ -192,6 +206,11 @@ def measure() -> dict:
     }
     bits = {key: _fingerprint(out) for key, out in bits.items()}
     bits["split_20000"] = _fingerprint(inverse(x20k))
+    bits["fp64_4096"] = _fingerprint(torch.from_numpy(
+        matrix_inversion_fp64(a4k64.reshape(-1), 4096, device="cuda")))
+    bits["no_pivot_fp64_1024"] = _fingerprint(torch.from_numpy(
+        matrix_inversion_no_pivots(dom1k.reshape(-1), 1024, device="cuda")))
+    bits["spec_fp64_64x256"] = _fingerprint(inverse(batch64))
 
     # (label, call, calls to time, the kernel's name in the profiler)
     xa16, xb16 = (g.bfloat16() for g in big)
@@ -242,7 +261,10 @@ def measure() -> dict:
                                                                  refine=0)),
             ("blocked_4096_refined", lambda: blocked.blocked_inverse(x4k)),
             ("lu_inverse_4096", lambda: inverse(x4k, method="lu")),
-            ("ns_4096", lambda: inverse(wc4k, method="ns"))):
+            ("ns_4096", lambda: inverse(wc4k, method="ns")),
+            ("fp64_4096", lambda: inverse(x4k64)),
+            ("no_pivot_fp64_1024", lambda: inverse(dom1k_dev, pivot=False)),
+            ("spec_fp64_64x256", lambda: inverse(batch64))):
         ms[label] = prof.events_ms(fn, 3)
         ms[f"{label}_device"] = prof.device_ms(fn)
     return {"card": subprocess.run(

@@ -13,6 +13,10 @@ The compiled routes (``utils/graphs.py``): each replayed bit for bit as it
 runs eagerly, with the eager launch counts; a held result survives later
 replays; a capture that syncs the host raises.
 
+L1 and L2 (the FP64 routes' loops): L1 bit for bit against its twin up to
+the sign of a zero, ok equal; L2's pivot rows and ok identical; each FP64
+route launches them and never runs the plain loops.
+
 Tolerances as in ``chip_smoke.py``: pivot sequences identical, ok equal,
 values within 1e-4 of max|twin|; K1, K4 and K5 also elementwise against
 the twin (``_hold_to_twin``), K1's cluster branch byte-identical across
@@ -872,10 +876,13 @@ def graph_cache(cuda):
 
 def _wrappers() -> dict:
     from gpu_matrix_inversion_tpu_torch.ops import lockstep, matmul
+    from gpu_matrix_inversion_tpu_torch.ops import gauss_jordan
     return {"K1": fused.gj_kernel, "K2": blocked.panel_factor,
             "K3": blocked.pivot_search, "K4": blocked.invert_small,
             "K5": lu.small_lu, "K6": lockstep.lockstep_factor,
-            "K7": matmul.tiled_matmul}
+            "K7": matmul.tiled_matmul,
+            "L1": gauss_jordan._gauss_jordan_aug,
+            "L2": blocked._panel_pivots_logical}
 
 
 def _counts() -> dict:
@@ -1160,3 +1167,109 @@ def test_trace_of_a_replayed_route_shows_the_phase_ranges(graph_cache, cuda,
     text = "".join(f.read_text() for f in tmp_path.rglob("*.json"))
     for name in ("make_augmented", "pivot"):
         assert f"matinv::{name}" in text
+
+
+def _zero_sign_differences(x, y) -> int:
+    """Elements whose bits differ other than by the sign of a zero."""
+    ints = torch.int64 if x.element_size() == 8 else torch.int32
+    differ = x.view(ints) != y.view(ints)
+    return int((differ & ~((x == 0) & (y == 0))).sum())
+
+
+@pytest.mark.parametrize("bsz, n, dtype, pivot, kind", [
+    (1, 256, torch.float64, True, "normal"),      # the FP64 tier's block
+    (64, 256, torch.float64, True, "normal"),
+    (1, 511, torch.float64, True, "normal"),      # cluster of 16
+    (4, 100, torch.float32, False, "normal"),
+    (4, 256, torch.float64, True, "integers"),    # exact ties
+    (1, 640, torch.float32, True, "normal"),      # the grid branch
+    (2, 1000, torch.float64, False, "normal"),
+])
+def test_l1_matches_twin(cuda, bsz, n, dtype, pivot, kind):
+    """L1 (csrc/gauss_jordan.cu) against gauss_jordan_twin on the card:
+    the twin's bits up to the sign of a zero, ok equal (all true)."""
+    from gpu_matrix_inversion_tpu_torch.ops import gauss_jordan
+    rng = np.random.default_rng(n + bsz)
+    if kind == "integers":
+        a = rng.integers(-3, 4, (bsz, n, n)).astype(np.float64)
+    else:
+        a = rng.standard_normal((bsz, n, n)) + (0 if pivot else n
+                                                * np.eye(n))
+    x = torch.from_numpy(a).to(dtype).to(cuda)
+    inv, ok = gauss_jordan._gauss_jordan_aug(x, pivot=pivot)
+    want, want_ok = gauss_jordan.gauss_jordan_twin(x, pivot=pivot)
+    assert torch.equal(ok, want_ok)
+    assert kind == "integers" or bool(ok.all())
+    assert _zero_sign_differences(inv, want) == 0
+
+
+@pytest.mark.parametrize("n", [256, 640])
+def test_l1_ok_on_singular_and_nan_blocks(cuda, n):
+    """A regular, a singular (a zero row) and a NaN block: ok as the
+    twin's, true, false, false."""
+    from gpu_matrix_inversion_tpu_torch.ops import gauss_jordan
+    a = np.random.default_rng(n).standard_normal((3, n, n))
+    a[1, 3] = 0.0
+    a[2, 7, 9] = np.nan
+    x = torch.from_numpy(a).to(cuda)
+    ok = gauss_jordan._gauss_jordan_aug(x, pivot=True)[1]
+    assert ok.tolist() == [True, False, False]
+    assert torch.equal(ok, gauss_jordan.gauss_jordan_twin(x, pivot=True)[1])
+
+
+@pytest.mark.parametrize("m, b, dtype, pivot, mask", [
+    (512, 64, torch.float64, True, "half"),
+    (4096, 256, torch.float64, False, "half"),    # a later no-pivot panel
+    (8192, 256, torch.float64, True, "empty"),
+    (16384, 256, torch.float64, True, "half"),    # rows in a workspace
+    (65600, 32, torch.float32, True, "empty"),
+])
+def test_l2_matches_twin(cuda, m, b, dtype, pivot, mask):
+    """L2 (csrc/logical_panel.cu) against logical_panel_twin on the card:
+    pivot rows and ok identical."""
+    rng = np.random.default_rng(m + b)
+    strip = torch.from_numpy(rng.standard_normal((m, b))).to(dtype).to(cuda)
+    used = torch.zeros(m, dtype=torch.int32, device=cuda)
+    kb = 0
+    if mask == "half" and pivot:
+        used[torch.from_numpy(rng.permutation(m)[:m // 2]).to(cuda)] = 1
+    elif mask == "half":
+        used[:m // 2] = 1
+        kb = m // 2
+    got, ok = blocked._panel_pivots_logical(strip, used, kb, b=b,
+                                            pivot=pivot)
+    want, want_ok = blocked.logical_panel_twin(strip, used, kb, b=b,
+                                               pivot=pivot)
+    assert torch.equal(got, want) and bool(ok) == bool(want_ok)
+
+
+def test_fp64_routes_launch_the_loops(cuda):
+    """On the card the FP64 routes run L1 and L2 and never the plain
+    loops: FP64 1024^2 (b = 256) K3 and L1 once a panel, no-pivot FP64
+    1024^2 L2 and L1 once a panel, an FP64 (8, 128^2) batch (spec) one L1
+    launch; each within 1e-12 in residual."""
+    from gpu_matrix_inversion_tpu_torch.models.solver import inverse
+    from gpu_matrix_inversion_tpu_torch.ops import gauss_jordan
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    from gpu_matrix_inversion_tpu_torch.utils.residual import (
+        relative_residual)
+    h = hollow_random_matrix(1024, seed=11, dtype=np.float64)
+    dom = h + 2 * np.abs(h).sum(axis=1).max() * np.eye(1024)
+    batch = np.stack([hollow_random_matrix(128, seed=s, dtype=np.float64)
+                      for s in range(8)])
+    for a, pivot, want in ((h, True, {"K3": 4, "L1": 4}),
+                           (dom, False, {"L2": 4, "L1": 4}),
+                           (batch, True, {"L1": 1})):
+        gauss_jordan.gauss_jordan_twin.calls = 0
+        blocked.logical_panel_twin.calls = 0
+        before = _counts()
+        inv, ok = inverse(torch.from_numpy(a).to(cuda), pivot=pivot)
+        assert _grown(before) == want
+        assert gauss_jordan.gauss_jordan_twin.calls == 0
+        assert blocked.logical_panel_twin.calls == 0
+        assert bool(ok.all())
+        x = inv.cpu().numpy()
+        for i in range(a.shape[0] if a.ndim == 3 else 1):
+            ai, xi = (a[i], x[i]) if a.ndim == 3 else (a, x)
+            assert relative_residual(ai, xi) <= 1e-12

@@ -252,7 +252,7 @@ def test_counted_wrappers_cover_every_launch_counter():
             assert [line for _, line in adds] == [
                 "if not cuda_build.capturing():   # a graph's record is no "
                 "launch"], name
-    assert wrappers == 7
+    assert wrappers == 9
     for path in [REPO / "chip_smoke.py"] + sorted(PKG.rglob("*.py")):
         assert not re.search(r"\.launches \+= (?!1\b)", path.read_text()), (
             path)

@@ -298,16 +298,20 @@ def test_fp64_tier_panel_matches_jax(mask):
 
 
 @pytest.mark.parametrize("case", ["pivot", "prior_panel", "no_pivot",
-                                  "zero_column"])
+                                  "zero_column", "half_used", "ties",
+                                  "no_pivot_prior", "fp32"])
 def test_panel_pivots_logical_matches_jax(case):
-    """The plain logical panel against the JAX one on an fp64 (256, 32)
-    strip: pivot rows identical, ok equal (false on a column with no
-    nonzero unused row)."""
+    """The plain logical panel (L2's twin) against the JAX one on a
+    (256, 32) strip, fp64 unless the case says fp32: pivot rows identical,
+    ok equal (false on a column with no nonzero unused row). "ties" holds
+    integers in [-3, 3], whose equal magnitudes go to the first row in
+    both; "half_used" and "no_pivot_prior" start with half the rows used,
+    as a later panel does."""
     m, b = 256, 32
     rng = np.random.default_rng(27)
     strip = rng.standard_normal((m, b))
     used = np.zeros(m, np.int32)
-    kb, pivot = 0, case != "no_pivot"
+    kb, pivot = 0, case not in ("no_pivot", "no_pivot_prior")
     if case == "prior_panel":
         used[rng.permutation(m)[:64]] = 1
     elif case == "no_pivot":
@@ -315,6 +319,15 @@ def test_panel_pivots_logical_matches_jax(case):
     elif case == "zero_column":
         used[:8] = 1
         strip[8:, 5] = 0.0
+    elif case == "half_used":
+        used[rng.permutation(m)[:m // 2]] = 1
+    elif case == "ties":
+        strip = rng.integers(-3, 4, (m, b)).astype(np.float64)
+    elif case == "no_pivot_prior":
+        used[:m // 2] = 1
+        kb = m // 2
+    elif case == "fp32":
+        strip = strip.astype(np.float32)
     jp, _, jok = jblocked._panel_pivots_logical(
         jnp.asarray(strip), jnp.asarray(used[:, None].astype(np.float64)),
         jnp.int32(kb), m=m, b=b, pivot=pivot)
