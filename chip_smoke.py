@@ -74,6 +74,17 @@ and 4096^2, an FP64 (64, 256^2) batch) with their launch counts and the
 plain loops' call counts at 0, phase 6 repeats them poisoned, phase 7
 times L1 and L2 beside their bounds, twins and (L1) torch.linalg.inv, and
 phase 8 runs the FP64 routes eager, at their first call and replayed.
+The twelfth slice added kernels L3 (``csrc/lu_panel.cu``), L4 (the LU
+mode of ``csrc/gauss_jordan.cu``) and L5 (``csrc/lu_solve.cu``), the LU
+module's device-side loops (the blocked getrf's panel for every dtype but
+fp32's kernel route, the spec getrf and getrs): phase 1 prints their
+geometries, phase 4g holds them to their twins bit for bit, phase 5e
+drives FP64 LU, ``solve(refine_iters=2)``, ``lu_inverse_refined`` and
+the spec on a (64, 128^2) batch with their launch counts, phase 6
+repeats them poisoned, phase 7 times them beside their bounds, twins and
+``torch.linalg.lu_factor`` / ``lu_solve``, and phase 8 runs the five
+newly compiled spec sites and the LU routes eager, at their first call
+and replayed.
 Each path runs with the kernels' launch counts zeroed and the graph cache
 emptied just before it, and the counts read just after: it must have
 launched its kernels. The wrappers count launches from the host, so a
@@ -247,13 +258,15 @@ def main() -> None:
     from gpu_matrix_inversion_tpu_torch.ops import (blocked, cholesky, fused,
                                                     gauss_jordan, lockstep,
                                                     lu, matmul)
+    from gpu_matrix_inversion_tpu_torch.ops.refine import lu_inverse_refined
     from gpu_matrix_inversion_tpu_torch.parallel import (
         launch, make_device_mesh, sharded, sharded_batched_inverse,
         sharded_blocked_inverse)
     from gpu_matrix_inversion_tpu_torch.utils import (cuda_build, determinism,
                                                       graphs, profiling)
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
-        hollow_random_matrix, well_conditioned_matrix)
+        hollow_random_matrix, ill_conditioned_matrix,
+        well_conditioned_matrix)
     from gpu_matrix_inversion_tpu_torch.utils.precision import (
         matmul_precision)
     # events_ms: CUDA events around the calls, after a warm-up; device_ms:
@@ -268,11 +281,13 @@ def main() -> None:
                 "K5": lu.small_lu, "K6": lockstep.lockstep_factor,
                 "K7": matmul.tiled_matmul,
                 "L1": gauss_jordan._gauss_jordan_aug,
-                "L2": blocked._panel_pivots_logical}
-    # The plain loops L1 and L2 replace, counted by calls: on the card no
+                "L2": blocked._panel_pivots_logical, "L3": lu._lu_panel,
+                "L4": lu._lu_factor_batched, "L5": lu._lu_solve_batched}
+    # The plain loops L1 to L5 replace, counted by calls: on the card no
     # path may run them.
     twins = {"L1": gauss_jordan.gauss_jordan_twin,
-             "L2": blocked.logical_panel_twin}
+             "L2": blocked.logical_panel_twin, "L3": lu.lu_panel_twin,
+             "L4": lu.lu_factor_twin, "L5": lu.lu_solve_twin}
 
     def zero_counts() -> None:
         """Zero the launch counts, and drop the compiled routes' graphs:
@@ -297,8 +312,8 @@ def main() -> None:
         for k in expect:
             check(counts[k] > 0, f"{k} launched on {path}")
         calls = {k: fn.calls for k, fn in twins.items()}
-        check(not any(calls.values()), f"{path}: the plain loops of L1 and "
-              f"L2 ran no time ({calls})")
+        check(not any(calls.values()), f"{path}: the plain loops of L1 to "
+              f"L5 ran no time ({calls})")
         return counts
 
     def hold_records(what: str, got: dict, want: dict) -> None:
@@ -384,6 +399,29 @@ def main() -> None:
         clusters[f"L2 ({m}, {b}) fp64"] = geo.ctas
         log(f"  L2 ({m}, {b}) fp64: a grid of {geo.ctas} CTAs of {geo.rows} "
             f"rows (in {'shared' if geo.rows_shared else 'device'} memory)")
+    # L4 on L1's geometry (the occupancy of its LU mode's cluster kernel),
+    # L3 on L2's grid, L5 one CTA a (matrix, tile of columns).
+    for n, bsz, dtype in ((128, 64, torch.float32), (200, 1, torch.float64),
+                          (4096, 1, torch.float32)):
+        geo, resident = gauss_jordan.loop_plan(n, bsz, dtype, dev,
+                                               lu=True)
+        clusters[f"L4 ({bsz}, {n}^2) {str(dtype)[6:]}"] = geo.ctas
+        log(f"  L4 ({bsz}, {n}^2) {str(dtype)[6:]}: {geo.branch} of "
+            f"{geo.ctas} CTAs of {geo.rows} rows, {geo.smem} bytes of shared "
+            f"memory each (rows in "
+            f"{'shared' if geo.rows_shared else 'device'} memory)"
+            + (f"; cudaOccupancyMaxActiveClusters: {resident}"
+               if resident is not None else ""))
+    for m, b in ((4096, 128), (1024, 128)):
+        geo = blocked.logical_geometry(m, b, 8, gauss_jordan.sm_count(0))
+        clusters[f"L3 ({m}, {b}) fp64"] = geo.ctas
+        log(f"  L3 ({m}, {b}) fp64: a grid of {geo.ctas} CTAs of {geo.rows} "
+            f"rows (in {'shared' if geo.rows_shared else 'device'} memory)")
+    for bsz, k in ((1, 16), (1, 4096), (64, 128)):
+        kc = lu.lu_solve_geometry(bsz, k, gauss_jordan.sm_count(0))
+        clusters[f"L5 ({bsz}, k = {k})"] = bsz * -(-k // kc)
+        log(f"  L5 ({bsz} matrices, k = {k}): {kc} columns a CTA, "
+            f"{bsz * -(-k // kc)} CTAs")
 
     # ---- phase 2: build report -----------------------------------------
     phase("phase 2: build report")
@@ -897,6 +935,150 @@ def main() -> None:
             f" memory, {geo.smem} bytes shared): " + "; ".join(seen))
     del strip, used
 
+    # ---- phase 4g: L3, L4 and L5 against their twins --------------------
+    # L3 (csrc/lu_panel.cu), L4 (csrc/gauss_jordan.cu's LU mode) and L5
+    # (csrc/lu_solve.cu), the kernels of the LU module's device-side
+    # loops, against their plain twins on the card on the same inputs.
+    # Tolerance: none. The kernels take the twins' operations in the
+    # twins' order (x - f * v rounded twice on every row, f = 0 on the
+    # rows a step does not eliminate, IEEE division, the first maximum as
+    # torch.argmax picks it), so every output is the twin's bit for bit,
+    # NaN where the twin has NaN (a batch with a singular, a NaN and an
+    # infinite member, an infinity in a panel's first pivot row), and
+    # perm, the pivot rows, the mask and ok are identical. The shapes are
+    # the routes': L4 on the (64, 128^2) batch of inverse(method="lu"),
+    # (1, 200^2) fp64 and ragged n = 130 on clusters, and (1, 4096^2) fp32
+    # (lu_inverse_refined at full width) on the grid; L5 on those factors
+    # with k = 16 (solve(refine_iters=2)), the identity (k = 4096 and 128)
+    # and k = 1; L3 at FP64 getrf 4096^2's and slogdet 1024^2's panels,
+    # without pivoting, ragged (200, 64) and (130, 32), and (16384, 256)
+    # (rows in a workspace). max_abs_err is the largest difference over the
+    # elements finite in both.
+    phase("phase 4g: L3 lu_panel, L4 lu_factor and L5 lu_solve vs their "
+          "twins")
+
+    def same_bits_nan(x: torch.Tensor, y: torch.Tensor) -> bool:
+        """Bit for bit, NaN matching NaN whatever its payload."""
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        nan = torch.isnan(x)
+        if not torch.equal(nan, torch.isnan(y)):
+            return False
+        ints = torch.int64 if x.element_size() == 8 else torch.int32
+        return torch.equal(x.view(ints)[~nan], y.view(ints)[~nan])
+
+    def finite_err(x: torch.Tensor, y: torch.Tensor) -> float:
+        fin = torch.isfinite(x) & torch.isfinite(y)
+        if not bool(fin.any()):
+            return 0.0
+        return float((x[fin].double() - y[fin].double()).abs().max())
+
+    def lu_members(bsz: int, n: int, kind: str) -> np.ndarray:
+        if kind == "integers":
+            return rng.integers(-3, 4, (bsz, n, n)).astype(np.float64)
+        a = rng.standard_normal((bsz, n, n))
+        if kind == "dominant":
+            a += n * np.eye(n)
+        if kind == "special":    # regular, singular, NaN, infinite
+            a[1, 3] = 0.0
+            a[2, n // 2, n // 3] = np.nan
+            a[3, n // 3, n // 2] = np.inf
+        return a
+
+    l4_abs = 0.0
+    factors = {}
+    for bsz, n, dtype, pivot, kind in (
+            (64, 128, torch.float32, True, "normal"),
+            (1, 200, torch.float64, True, "normal"),
+            (1, 200, torch.float64, False, "dominant"),
+            (1, 130, torch.float32, False, "dominant"),
+            (4, 256, torch.float64, True, "integers"),
+            (4, 200, torch.float64, True, "special"),
+            (4, 130, torch.float32, True, "special"),
+            (1, 4096, torch.float32, True, "normal")):
+        x = torch.from_numpy(lu_members(bsz, n, kind)).to(dtype).to(dev)
+        geo = gauss_jordan.loop_plan(n, bsz, dtype, dev, lu=True)[0]
+        got = lu._lu_factor_batched(x, pivot=pivot)
+        torch.cuda.synchronize()
+        want = lu.lu_factor_twin(x, pivot=pivot)
+        l4_abs = max(l4_abs, finite_err(got[0], want[0]))
+        oks = got[2].tolist()
+        check(same_bits_nan(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(got[2], want[2])
+              and oks == ([True, False, False, False] if kind == "special"
+                          else oks if kind == "integers" else [True] * bsz),
+              f"L4 ({bsz}, {n}^2) {str(dtype)[6:]} "
+              f"{'pivot' if pivot else 'no pivot'} {kind} on {geo.branch} "
+              f"of {geo.ctas} CTAs: the twin's bits, perm and ok ({oks})")
+        factors[(bsz, n, kind)] = got[:2]
+        del x, got, want
+    l5_abs = 0.0
+    for (bsz, n, kind), k in (((1, 4096, "normal"), 16),
+                              ((1, 4096, "normal"), 4096),
+                              ((64, 128, "normal"), 128),
+                              ((1, 200, "normal"), 1),
+                              ((4, 200, "special"), 5),
+                              ((4, 130, "special"), 33)):
+        fac, perm = factors[(bsz, n, kind)]
+        if k == n:   # the identity: lu_inverse's right-hand side
+            rhs_k = torch.eye(n, dtype=fac.dtype, device=dev).expand(
+                bsz, n, n).contiguous()
+        else:
+            rhs_k = torch.from_numpy(rng.standard_normal((bsz, n, k))).to(
+                fac.dtype).to(dev)
+        got = lu._lu_solve_batched(fac, perm, rhs_k)
+        torch.cuda.synchronize()
+        want = lu.lu_solve_twin(fac, perm, rhs_k)
+        l5_abs = max(l5_abs, finite_err(got[0], want[0]))
+        oks = got[1].tolist()
+        # The infinite member's factor may hold its infinity as a pivot
+        # with zero multipliers below it: x is then finite and ok true, in
+        # the twin as in the kernel.
+        check(same_bits_nan(got[0], want[0]) and torch.equal(got[1], want[1])
+              and oks[:3] == ([True, False, False] if kind == "special"
+                              else [True] * min(bsz, 3)),
+              f"L5 ({bsz}, {n}^2, k = {k}) {str(fac.dtype)[6:]} {kind}: the "
+              f"twin's bits and ok ({oks})")
+        del got, want, rhs_k
+    del factors
+    l3_abs = 0.0
+    for m, b, dtype, pivot, mask in (
+            (4096, 128, torch.float64, True, "empty"),
+            (4096, 128, torch.float64, True, "prior"),
+            (1024, 128, torch.float64, True, "empty"),
+            (1024, 128, torch.float64, False, "later"),
+            (200, 64, torch.float64, True, "prior"),
+            (130, 32, torch.float32, True, "empty"),
+            (1024, 128, torch.float64, True, "inf"),
+            (16384, 256, torch.float64, True, "prior")):
+        a = rng.standard_normal((m, b))
+        used = torch.zeros(m, dtype=torch.int32, device=dev)
+        kb = 0
+        if mask == "prior":
+            used[torch.from_numpy(rng.permutation(m)[:m // 3]).to(dev)] = 1
+        elif mask == "later":   # a later no-pivot panel, its rows dominant
+            kb = m // 2
+            used[:kb] = 1
+            a += 4 * b * (np.arange(m)[:, None] == np.arange(b) + kb)
+        elif mask == "inf":     # an infinity in the first pivot row
+            a[int(np.abs(a[:, 0]).argmax()), 5] = np.inf
+        strip = torch.from_numpy(a).to(dtype).to(dev)
+        geo = blocked.logical_geometry(m, b, dtype.itemsize,
+                                       gauss_jordan.sm_count(0))
+        got = lu._lu_panel(strip, used, kb, b=b, pivot=pivot)
+        torch.cuda.synchronize()
+        want = lu.lu_panel_twin(strip, used, kb, b=b, pivot=pivot)
+        l3_abs = max(l3_abs, finite_err(got[0], want[0]))
+        check(same_bits_nan(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(got[2], want[2])
+              and bool(got[3]) == bool(want[3]),
+              f"L3 ({m}, {b}) {str(dtype)[6:]} "
+              f"{'pivot' if pivot else 'no pivot'}, {mask} mask, on "
+              f"{geo.ctas} CTAs ({'shared' if geo.rows_shared else 'device'}"
+              f" memory): the twin's bits, pivot rows, mask and ok "
+              f"({bool(got[3])})")
+        del strip, used, got, want
+
     # ---- phase 5: the main path through the public API ------------------
     phase("phase 5: main path (matrix_inv_32 / inverse on cuda)")
     zero_counts()
@@ -1079,7 +1261,8 @@ def main() -> None:
     # Gates: getri residual <= 1e-5 (the JAX package's own gate,
     # tests/test_lu_blocked.py:44); the solve's normwise backward error
     # ||Ax - b|| / (||A|| ||x||) <= 1e-5 likewise; slogdet against numpy.
-    phase("phase 5e: LU route (inverse method=lu, solve, slogdet)")
+    phase("phase 5e: LU route (inverse method=lu, solve, slogdet; FP64 on "
+          "L3, refinement and the spec on L4 and L5)")
     zero_counts()
     inv_lu, ok_lu = inverse(x4k, method="lu")
     counts_lu = read_counts("inverse(method='lu') 4096^2", ("K3", "K5"))
@@ -1107,6 +1290,108 @@ def main() -> None:
     check(bool(ok_d) and float(sign) == want_sign
           and abs(float(logabs) - want_log) <= 1e-4 * abs(want_log),
           "slogdet 1024 matches numpy (sign equal, log within 1e-4)")
+    # The LU routes on L3, L4 and L5 (twelfth slice). FP64 at n >= 256 runs
+    # the blocked getrf's panel loop on L3 (32 panels at 4096^2, 8 at
+    # 1024^2); solve(refine_iters=2) each correction on L5; the spec (any
+    # LU call under 256, lu_inverse_refined at any n) L4 and L5. Gates:
+    # FP64 getri residual and solve backward error <= 1e-12 (as phase 5b's
+    # FP64 gate); slogdet FP64 against numpy within 1e-10 relative; the
+    # refined solve's backward error <= 1e-5 (its residual is FP32's);
+    # lu_inverse_refined on ill_conditioned_matrix(4096, cond=1e4,
+    # seed=55) with 4 float64 Newton-Schulz steps: refined residual
+    # < 1e-10 and < raw / 10 (the JAX package's gates,
+    # tests/test_lu.py:69-80); the (64, 128^2) batch's inverses <= 1e-5
+    # and its slogdet against numpy within 1e-4.
+    x4k64_dev = torch.from_numpy(a4k64).to(dev)
+    zero_counts()
+    inv64, ok64 = inverse(x4k64_dev, method="lu")
+    counts_lu64 = read_counts("inverse(method='lu') FP64 4096^2", ("L3",))
+    r_lu64 = float(batched_residual(x4k64_dev, inv64))
+    log(f"  n=4096 FP64 LU getri: residual {r_lu64:.3e}")
+    check(counts_lu64["L3"] == 32 and counts_lu64["K3"] == 0
+          and counts_lu64["K5"] == 0, "FP64 LU getri 4096^2: 32 L3 launches, "
+          "no K3 or K5")
+    check(bool(ok64) and r_lu64 <= 1e-12, "FP64 LU getri 4096^2 residual "
+          "<= 1e-12")
+    del inv64
+    rhs64 = rhs.double()
+    zero_counts()
+    x64, okx64 = solve(x4k64_dev, rhs64, method="lu")
+    counts_solve64 = read_counts("solve FP64 4096^2 x 16", ("L3",))
+    berr64 = float(torch.linalg.norm(x4k64_dev @ x64 - rhs64)
+                   / (torch.linalg.norm(x4k64_dev) * torch.linalg.norm(x64)))
+    log(f"  solve FP64 4096^2 x 16: ||Ax-b|| / (||A|| ||x||) = {berr64:.3e}")
+    check(counts_solve64["L3"] == 32 and bool(okx64) and berr64 <= 1e-12,
+          "solve FP64 4096^2 x 16: 32 L3 launches, backward error <= 1e-12")
+    a1k64 = hollow_random_matrix(1024, seed=7, dtype=np.float64) / 50
+    a1k64_dev = torch.from_numpy(a1k64).to(dev)
+    zero_counts()
+    sign64, logabs64, ok_d64 = slogdet(a1k64_dev)
+    counts_det64 = read_counts("slogdet FP64 1024^2", ("L3",))
+    want_sign64, want_log64 = np.linalg.slogdet(a1k64)
+    log(f"  slogdet FP64 1024^2: sign {float(sign64)} logabsdet "
+        f"{float(logabs64):.12f}; numpy {want_sign64} {want_log64:.12f}")
+    check(counts_det64["L3"] == 8 and bool(ok_d64)
+          and float(sign64) == want_sign64
+          and abs(float(logabs64) - want_log64) <= 1e-10 * abs(want_log64),
+          "slogdet FP64 1024^2: 8 L3 launches, matches numpy (sign equal, "
+          "log within 1e-10)")
+    zero_counts()
+    x_ref, ok_ref = solve(x4k, rhs, method="lu", refine_iters=2)
+    counts_ref = read_counts("solve(x4k, rhs, refine_iters=2)",
+                             ("K3", "K5", "L5"))
+    berr_ref = float(torch.linalg.norm(a64 @ x_ref.double() - b64)
+                     / (torch.linalg.norm(a64)
+                        * torch.linalg.norm(x_ref.double())))
+    log(f"  solve 4096^2 x 16, refine_iters=2: ||Ax-b|| / (||A|| ||x||) = "
+        f"{berr_ref:.3e} (unrefined {berr:.3e})")
+    check(counts_ref["L5"] == 2 and counts_ref["K3"] == 32
+          and bool(ok_ref) and berr_ref <= 1e-5,
+          "solve refine_iters=2: 32 K3, 2 L5 launches, backward error "
+          "<= 1e-5")
+    t0 = time.perf_counter()
+    a_ill = ill_conditioned_matrix(4096, cond=1e4, seed=55,
+                                   dtype=np.float64)
+    log(f"  ill_conditioned_matrix(4096, cond=1e4, seed=55) made on the host "
+        f"in {time.perf_counter() - t0:.1f} s")
+    x_ill = torch.from_numpy(a_ill).to(dev)
+    zero_counts()
+    x_lir, ok_lir = lu_inverse_refined(x_ill, iters=4,
+                                       residual_dtype=torch.float64)
+    counts_lir = read_counts("lu_inverse_refined 4096^2", ("L4", "L5"))
+    r_lir = float(batched_residual(x_ill, x_lir))
+    x_raw, ok_raw_lir = lu.lu_inverse(x_ill.float())
+    r_raw_lir = float(batched_residual(x_ill, x_raw))
+    log(f"  lu_inverse_refined 4096^2 (cond 1e4): raw residual "
+        f"{r_raw_lir:.3e}, refined {r_lir:.3e}")
+    check(counts_lir["L4"] == 1 and counts_lir["L5"] == 1 and bool(ok_lir)
+          and bool(ok_raw_lir) and r_lir < 1e-10 and r_lir < r_raw_lir / 10,
+          "lu_inverse_refined 4096^2: one L4 and one L5 launch, refined "
+          "residual < 1e-10 and < raw / 10")
+    del x_lir, x_raw
+    b128 = np.stack([hollow_random_matrix(128, seed=s) for s in range(64)])
+    b128_dev = torch.from_numpy(b128).to(dev)
+    zero_counts()
+    inv128, ok128 = inverse(b128_dev, method="lu")
+    counts_b128 = read_counts("inverse(method='lu') (64, 128^2)",
+                              ("L4", "L5"))
+    res128 = float(batched_residual(b128_dev, inv128).max())
+    log(f"  inverse(method='lu') (64, 128^2): max residual {res128:.3e}")
+    check(counts_b128["L4"] == 1 and counts_b128["L5"] == 1
+          and bool(ok128.all()) and res128 <= 1e-5,
+          "inverse(method='lu') (64, 128^2): one L4 and one L5 launch, "
+          "residual <= 1e-5")
+    zero_counts()
+    sign128, logabs128, ok_d128 = slogdet(b128_dev)
+    counts_det128 = read_counts("slogdet (64, 128^2)", ("L4",))
+    want_s128, want_l128 = np.linalg.slogdet(b128.astype(np.float64))
+    err128 = float(np.abs(logabs128.cpu().numpy() - want_l128).max()
+                   / np.abs(want_l128).max())
+    check(counts_det128["L4"] == 1 and bool(ok_d128.all())
+          and np.array_equal(sign128.cpu().numpy(), want_s128)
+          and err128 <= 1e-4,
+          f"slogdet (64, 128^2): one L4 launch, matches numpy (signs equal, "
+          f"logs within {err128:.2e} <= 1e-4)")
 
     # ---- phase 5f: the lockstep route ------------------------------------
     # inverse on FP32 hollow batches at the JAX package's recorded lockstep
@@ -1441,7 +1726,7 @@ def main() -> None:
     # The control, an uninitialised torch.empty, must drift (the first run
     # reads a cached block zeroed here). Each kernel at its main path's
     # shape, then each route; 3 runs, 2 for the split and FP64 routes.
-    phase("phase 6: check_deterministic over K1-K7 and every route")
+    phase("phase 6: check_deterministic over K1-K7, L1-L5 and every route")
     scratch = torch.empty(1 << 22, device=dev)
     del scratch
     determinism.poison_allocator(dev, 0)
@@ -1482,6 +1767,12 @@ def main() -> None:
     x1k64 = torch.from_numpy(rng.standard_normal((1, 1000, 1000))).to(dev)
     s8k = torch.from_numpy(rng.standard_normal((8192, 256))).to(dev)
     u8k = torch.zeros(8192, dtype=torch.int32, device=dev)
+    s3l = torch.from_numpy(rng.standard_normal((4096, 128))).to(dev)
+    u3l = torch.zeros(4096, dtype=torch.int32, device=dev)
+    x4k_1 = x4k[None]
+    f4k, p4k, _ = lu._lu_factor_batched(x4k_1, pivot=True)
+    rhs_1 = rhs[None]
+    eye4k = torch.eye(4096, device=dev)[None]
 
     def lockstep_inverse():
         with lockstep_on():
@@ -1510,6 +1801,24 @@ def main() -> None:
         ("L2 (8192, 256) fp64",
          lambda: blocked._panel_pivots_logical(s8k, u8k, 0, b=256,
                                                pivot=True), 3),
+        ("L3 (4096, 128) fp64",
+         lambda: lu._lu_panel(s3l, u3l, 0, b=128, pivot=True), 3),
+        ("L4 (64, 128^2) fp32",
+         lambda: lu._lu_factor_batched(b128_dev, pivot=True), 3),
+        ("L4 (1, 4096^2) fp32 (grid branch)",
+         lambda: lu._lu_factor_batched(x4k_1, pivot=True), 2),
+        ("L5 (1, 4096^2) k = 16",
+         lambda: lu._lu_solve_batched(f4k, p4k, rhs_1), 3),
+        ("L5 (1, 4096^2) k = 4096",
+         lambda: lu._lu_solve_batched(f4k, p4k, eye4k), 3),
+        ("FP64 LU getri 4096^2", lambda: inverse(x4k64_dev, method="lu"), 2),
+        ("LU solve 4096^2 x 16, refine_iters=2",
+         lambda: solve(x4k, rhs, method="lu", refine_iters=2), 3),
+        ("lu_inverse_refined 4096^2",
+         lambda: lu_inverse_refined(x_ill, iters=4,
+                                    residual_dtype=torch.float64), 2),
+        ("LU spec inverse (64, 128^2)",
+         lambda: inverse(b128_dev, method="lu"), 3),
         ("FP64 8192^2", lambda: inverse(x8k64_dev), 2),
         ("no-pivot FP64 4096^2", lambda: inverse(dom4k_dev, pivot=False), 2),
         ("spec FP64 (64, 256^2)", lambda: inverse(b64_dev), 3),
@@ -1954,6 +2263,70 @@ def main() -> None:
         times[f"l2_twin_{key}_ms"] = events_ms(
             lambda: blocked.logical_panel_twin(st, us, kb, b=256,
                                                pivot=pivot), iters=2)
+    # L2's (8192, 256) record has no row used before it (kb = 0), so
+    # getrf of the strip, which the port never calls, computes its pivot
+    # rows (as LAPACK's row swaps) with the factor besides.
+    times["l2_library_lu_factor_8192_ms"] = events_ms(
+        lambda: torch.linalg.lu_factor(s8k), iters=10)
+    times["l2_library_lu_factor_8192_device_ms"] = device_ms(
+        lambda: torch.linalg.lu_factor(s8k), 10)
+    # L3 at FP64 getrf 4096^2's first panel (4096, 128); L4 at the
+    # (64, 128^2) batch of inverse(method="lu"), one fp64 200^2 matrix and
+    # its grid branch at (1, 4096^2) fp32 (lu_inverse_refined's); L5 at
+    # (1, 4096^2) with k = 16 (each correction of solve(refine_iters=2))
+    # and k = 4096 (lu_inverse_refined's identity) and at (64, 128^2)
+    # with k = 128; by CUDA events and the profiler's device time, beside
+    # the twins and beside torch.linalg.lu_factor (L3, L4) and
+    # torch.linalg.lu_solve on torch's own factor (L5) of the same
+    # matrices, which the port never calls. L3's panel has no row used
+    # before it (kb = 0), so getrf of the strip computes its function: the
+    # same first-max pivots, multipliers and U rows, stored in swapped row
+    # order.
+    times["l3_4096_ms"] = events_ms(
+        lambda: lu._lu_panel(s3l, u3l, 0, b=128, pivot=True), iters=10)
+    times["l3_4096_device_ms"] = device_ms(
+        lambda: lu._lu_panel(s3l, u3l, 0, b=128, pivot=True), 10,
+        "lu_panel")
+    times["l3_twin_4096_ms"] = events_ms(
+        lambda: lu.lu_panel_twin(s3l, u3l, 0, b=128, pivot=True), iters=1)
+    times["l3_library_lu_factor_4096_ms"] = events_ms(
+        lambda: torch.linalg.lu_factor(s3l), iters=10)
+    times["l3_library_lu_factor_4096_device_ms"] = device_ms(
+        lambda: torch.linalg.lu_factor(s3l), 10)
+    x200 = torch.from_numpy(rng.standard_normal((1, 200, 200))).to(dev)
+    eye128 = torch.eye(128, device=dev).expand(64, 128, 128).contiguous()
+    f128, p128, _ = lu._lu_factor_batched(b128_dev, pivot=True)
+    for key, xs, iters in (("64x128", b128_dev, 10), ("1x200", x200, 10),
+                           ("1x4096", x4k_1, 2)):
+        times[f"l4_{key}_ms"] = events_ms(
+            lambda: lu._lu_factor_batched(xs, pivot=True), iters=iters)
+        times[f"l4_{key}_device_ms"] = device_ms(
+            lambda: lu._lu_factor_batched(xs, pivot=True), iters,
+            "lu_factor")
+        times[f"l4_twin_{key}_ms"] = events_ms(
+            lambda: lu.lu_factor_twin(xs, pivot=True), iters=1)
+        times[f"l4_library_lu_factor_{key}_ms"] = events_ms(
+            lambda: torch.linalg.lu_factor(xs), iters=iters)
+        times[f"l4_library_lu_factor_{key}_device_ms"] = device_ms(
+            lambda: torch.linalg.lu_factor(xs), iters)
+    for key, (xs, fac, perm, rhs_k), iters in (
+            ("4096_k16", (x4k_1, f4k, p4k, rhs_1), 10),
+            ("4096_k4096", (x4k_1, f4k, p4k, eye4k), 3),
+            ("64x128_k128", (b128_dev, f128, p128, eye128), 10)):
+        times[f"l5_{key}_ms"] = events_ms(
+            lambda: lu._lu_solve_batched(fac, perm, rhs_k), iters=iters)
+        times[f"l5_{key}_device_ms"] = device_ms(
+            lambda: lu._lu_solve_batched(fac, perm, rhs_k), iters,
+            "lu_solve")
+        times[f"l5_twin_{key}_ms"] = events_ms(
+            lambda: lu.lu_solve_twin(fac, perm, rhs_k), iters=1)
+        lib_lu, lib_piv = torch.linalg.lu_factor(xs)
+        times[f"l5_library_lu_solve_{key}_ms"] = events_ms(
+            lambda: torch.linalg.lu_solve(lib_lu, lib_piv, rhs_k),
+            iters=iters)
+        times[f"l5_library_lu_solve_{key}_device_ms"] = device_ms(
+            lambda: torch.linalg.lu_solve(lib_lu, lib_piv, rhs_k), iters)
+        del lib_lu, lib_piv
     rates = {
         "k1_batch4096_inv_per_s": 4096 / (times["k1_batch4096_ms"] / 1e3),
         "k1_twin_batch4096_inv_per_s":
@@ -1967,6 +2340,12 @@ def main() -> None:
             times["k3_panel_20032_bf16_ms"] * 1e3 / 64,
         "l1_us_per_step_1x256": times["l1_1x256_ms"] * 1e3 / 256,
         "l2_us_per_step_8192": times["l2_8192_ms"] * 1e3 / 256,
+        "l3_us_per_step_4096": times["l3_4096_ms"] * 1e3 / 128,
+        "l4_us_per_step_64x128": times["l4_64x128_ms"] * 1e3 / 128,
+        "l4_us_per_step_1x200": times["l4_1x200_ms"] * 1e3 / 200,
+        "l4_us_per_step_1x4096": times["l4_1x4096_ms"] * 1e3 / 4096,
+        "l5_us_per_step_4096_k16": times["l5_4096_k16_ms"] * 1e3 / 8192,
+        "l5_us_per_step_4096_k4096": times["l5_4096_k4096_ms"] * 1e3 / 8192,
     }
     for key, val in {**times, **rates}.items():
         shown = "not measured" if val is None else f"{val:.4f}"
@@ -2018,6 +2397,34 @@ def main() -> None:
 
     bounds["L1"] = l1_bound(1, 256)
     bounds["L2"] = l2_bound(8192, 256, 8192)
+    # L3: a panel LU of the strip (panel_lu_flops, an empty mask) at the
+    # FP64 peak, or the strip, mask and pivot rows read and written once.
+    # L4: a pivoted LU, panel_lu_flops(n, n) ~ 2 n^3 / 3 a matrix, or the
+    # matrix read and its factor, perm and ok written once. L5: 2 n^2 k a
+    # matrix (both substitutions), or the factor, perm, b read and x
+    # written once.
+    def l4_bound(bsz, n, dtype):
+        return bound(bsz * panel_lu_flops(n, n),
+                     bsz * (2 * n * n * dtype.itemsize + 8 * n + 4), dtype)
+
+    def l5_bound(bsz, n, k, dtype):
+        return bound(bsz * 2 * n * n * k,
+                     bsz * (n * n * dtype.itemsize + 8 * n
+                            + 2 * n * k * dtype.itemsize + 4), dtype)
+
+    bounds["L3"] = bound(panel_lu_flops(4096, 128),
+                         2 * 4096 * 128 * 8 + 2 * 4096 * 4 + 128 * 4 + 4,
+                         torch.float64)
+    bounds["L4"] = l4_bound(1, 4096, torch.float32)
+    bounds["L5"] = l5_bound(1, 4096, 16, torch.float32)
+    l4_64 = l4_bound(64, 128, torch.float32)
+    l4_200 = l4_bound(1, 200, torch.float64)
+    l5_4096 = l5_bound(1, 4096, 4096, torch.float32)
+    l5_64 = l5_bound(64, 128, 128, torch.float32)
+    log(f"  L4 bound at (64, 128^2) fp32: {l4_64[0]:.6f} ms ({l4_64[1]}); "
+        f"(1, 200^2) fp64: {l4_200[0]:.6f} ms ({l4_200[1]}); L5 at "
+        f"(1, 4096^2, k = 4096): {l5_4096[0]:.6f} ms ({l5_4096[1]}); "
+        f"(64, 128^2, k = 128): {l5_64[0]:.6f} ms ({l5_64[1]})")
     l1_64 = l1_bound(64, 256)
     l1_1000 = l1_bound(1, 1000)
     l2_4096 = l2_bound(4096, 256, 2048)
@@ -2177,13 +2584,14 @@ def main() -> None:
              "inverse on a (64, 256^2) FP64 batch (spec)"]["L1"]},
         # L2's record is the FP64 8192^2 panel (8192, 256), its launches
         # that path's; max_abs_err counts pivot rows that differ from the
-        # twin's over phase 4f. No PyTorch call returns a panel's pivot
-        # rows under a used mask: library_ms is null.
+        # twin's over phase 4f; library_ms is torch.linalg.lu_factor of
+        # that strip (no row used before it).
         {**record("L2 logical_panel", "logical_panel.cu", "blocked.py:675",
                   fp64_paths["matrix_inversion_fp64 8192^2"]["L2"],
                   l2_mismatch, times["l2_8192_ms"], times["l2_twin_8192_ms"],
-                  None),
+                  times["l2_library_lu_factor_8192_ms"]),
          "kernel_device_ms": times["l2_8192_device_ms"],
+         "library_device_ms": times["l2_library_lu_factor_8192_device_ms"],
          "us_per_step": rates["l2_us_per_step_8192"],
          "grid": clusters["L2 (8192, 256) fp64"],
          "ms_4096_no_pivot": times["l2_4096_no_pivot_ms"],
@@ -2195,6 +2603,66 @@ def main() -> None:
          "launches_no_pivot_1024": counts_np["L2"],
          "launches_no_pivot_4096":
              fp64_paths["matrix_inversion_no_pivots 4096^2"]["L2"]},
+        # L3's record is FP64 getrf 4096^2's panel (4096, 128), its
+        # launches FP64 LU getri 4096^2's; library_ms is
+        # torch.linalg.lu_factor of that strip (no row used before it).
+        {**record("L3 lu_panel", "lu_panel.cu", "lu.py:227",
+                  counts_lu64["L3"], l3_abs, times["l3_4096_ms"],
+                  times["l3_twin_4096_ms"],
+                  times["l3_library_lu_factor_4096_ms"]),
+         "kernel_device_ms": times["l3_4096_device_ms"],
+         "library_device_ms": times["l3_library_lu_factor_4096_device_ms"],
+         "us_per_step": rates["l3_us_per_step_4096"],
+         "grid": clusters["L3 (4096, 128) fp64"],
+         "launches_solve_fp64_4096": counts_solve64["L3"],
+         "launches_slogdet_fp64_1024": counts_det64["L3"]},
+        # L4's record is lu_inverse_refined's (1, 4096^2) fp32 factor on
+        # the grid, its launches that path's; the (64, 128^2) batch and one
+        # fp64 200^2 matrix (clusters) in the *_64x128 and *_1x200 keys.
+        {**record("L4 lu_factor", "gauss_jordan.cu", "lu.py:29",
+                  counts_lir["L4"], l4_abs, times["l4_1x4096_ms"],
+                  times["l4_twin_1x4096_ms"],
+                  times["l4_library_lu_factor_1x4096_ms"]),
+         "kernel_device_ms": times["l4_1x4096_device_ms"],
+         "library_device_ms": times["l4_library_lu_factor_1x4096_device_ms"],
+         "us_per_step": rates["l4_us_per_step_1x4096"],
+         "grid": clusters["L4 (1, 4096^2) float32"],
+         **{f"{k}_{key}": times[f"l4_{t}{key}_{u}"]
+            for key in ("64x128", "1x200")
+            for k, t, u in (("ms", "", "ms"),
+                            ("kernel_device_ms", "", "device_ms"),
+                            ("plain_ms", "twin_", "ms"),
+                            ("library_ms", "library_lu_factor_", "ms"),
+                            ("library_device_ms", "library_lu_factor_",
+                             "device_ms"))},
+         "bound_ms_64x128": l4_64[0], "bound_by_64x128": l4_64[1],
+         "bound_ms_1x200": l4_200[0], "bound_by_1x200": l4_200[1],
+         "us_per_step_64x128": rates["l4_us_per_step_64x128"],
+         "launches_inverse_lu_64x128": counts_b128["L4"],
+         "launches_slogdet_64x128": counts_det128["L4"]},
+        # L5's record is one correction of solve(x4k, rhs, refine_iters=2)
+        # (1, 4096^2, k = 16), its launches that path's; lu_inverse_refined's
+        # identity (k = 4096) and the (64, 128^2) batch's in the
+        # *_4096_k4096 and *_64x128_k128 keys.
+        {**record("L5 lu_solve", "lu_solve.cu", "lu.py:92",
+                  counts_ref["L5"], l5_abs, times["l5_4096_k16_ms"],
+                  times["l5_twin_4096_k16_ms"],
+                  times["l5_library_lu_solve_4096_k16_ms"]),
+         "kernel_device_ms": times["l5_4096_k16_device_ms"],
+         "library_device_ms": times["l5_library_lu_solve_4096_k16_device_ms"],
+         "us_per_step": rates["l5_us_per_step_4096_k16"],
+         **{f"{k}_{key}": times[f"l5_{t}{key}_{u}"]
+            for key in ("4096_k4096", "64x128_k128")
+            for k, t, u in (("ms", "", "ms"),
+                            ("kernel_device_ms", "", "device_ms"),
+                            ("plain_ms", "twin_", "ms"),
+                            ("library_ms", "library_lu_solve_", "ms"),
+                            ("library_device_ms", "library_lu_solve_",
+                             "device_ms"))},
+         "bound_ms_4096_k4096": l5_4096[0], "bound_by_4096_k4096": l5_4096[1],
+         "bound_ms_64x128_k128": l5_64[0], "bound_by_64x128_k128": l5_64[1],
+         "launches_lu_inverse_refined_4096": counts_lir["L5"],
+         "launches_inverse_lu_64x128": counts_b128["L5"]},
     ]
     nccl_world.close()
 
@@ -2299,6 +2767,15 @@ def main() -> None:
         256, seed=256, dtype=np.float64)).to(dev)
     x256_b = torch.from_numpy(hollow_random_matrix(
         256, seed=257, dtype=np.float64)).to(dev)
+    rhs64_b = rhs64.flip(0)
+    x_ill_b = x_ill.flip(0)
+    b128_b = b128_dev.flip(0)
+    r128 = torch.from_numpy(rng.standard_normal((64, 128, 3)).astype(
+        np.float32)).to(dev)
+    # Another matrix: a row permutation of a1k64 has the same factor and
+    # logabsdet.
+    a1k64_b = torch.from_numpy(hollow_random_matrix(
+        1024, seed=8, dtype=np.float64) / 50).to(dev)
     lu_fns = ("lu_factor_blocked", "lu_solve_fast")
     chol_fns = ("cholesky_factor", "cholesky_solve")
     routes = [
@@ -2341,6 +2818,38 @@ def main() -> None:
          lambda: inverse(b64_dev), lambda: inverse(b64_b), 3),
         ("spec FP64 256^2", ("gauss_jordan_inverse",),
          lambda: inverse(x256), lambda: inverse(x256_b), 3),
+        # The twelfth slice: the LU routes on L3, L4 and L5, and the five
+        # spec sites newly compiled (the JAX package's jit at lu.py:80,
+        # 127, 138, 152, 1072).
+        ("FP64 LU getri 4096^2", ("lu_inverse_fast",),
+         lambda: inverse(x4k64, method="lu"),
+         lambda: inverse(x4k64_b, method="lu"), 1),
+        ("FP64 solve 4096^2 x 16", lu_fns,
+         lambda: solve(x4k64, rhs64, method="lu"),
+         lambda: solve(x4k64_b, rhs64_b, method="lu"), 1),
+        ("solve 4096^2 x 16, refine_iters=2", lu_fns + ("refine_solve",),
+         lambda: solve(x4k, rhs, method="lu", refine_iters=2),
+         lambda: solve(x4k_b, rhs_b, method="lu", refine_iters=2), 3),
+        ("lu_inverse_refined 4096^2", ("lu_inverse", "newton_schulz_refine"),
+         lambda: lu_inverse_refined(x_ill, iters=4,
+                                    residual_dtype=torch.float64),
+         lambda: lu_inverse_refined(x_ill_b, iters=4,
+                                    residual_dtype=torch.float64), 1),
+        ("LU spec inverse (64, 128^2)", ("lu_inverse",),
+         lambda: inverse(b128_dev, method="lu"),
+         lambda: inverse(b128_b, method="lu"), 3),
+        ("lu_factor (64, 128^2)", ("lu_factor",),
+         lambda: lu.lu_factor(b128_dev), lambda: lu.lu_factor(b128_b), 3),
+        ("lu_solve 4096^2 x 16", ("lu_solve",),
+         lambda: lu.lu_solve(f4k, p4k, rhs),
+         lambda: lu.lu_solve(f4k, p4k, rhs_b), 3),
+        ("lu_solve_matrix (64, 128^2) x 3", ("lu_solve_matrix",),
+         lambda: lu.lu_solve_matrix(b128_dev, r128),
+         lambda: lu.lu_solve_matrix(b128_b, r128), 3),
+        ("slogdet (64, 128^2)", ("slogdet",), lambda: slogdet(b128_dev),
+         lambda: slogdet(b128_b), 3),
+        ("slogdet FP64 1024^2", ("slogdet",), lambda: slogdet(a1k64_dev),
+         lambda: slogdet(a1k64_b), 3),
     ]
     def grown(before: dict, fns) -> list:
         """Captures and replays of each of ``fns`` since ``before``."""
@@ -2349,8 +2858,14 @@ def main() -> None:
         return [{k: now.get(fn, zero)[k] - before.get(fn, zero)[k]
                  for k in zero} for fn in fns]
 
+    # Routes whose compiled functions an earlier route already captured at
+    # the same signature (solve's getrf and getrs at 4096^2 fp32) start
+    # from an empty cache, so that their first call captures.
+    fresh = {"solve 4096^2 x 16, refine_iters=2"}
     compiled_rows = {}
     for name, fns, call_a, call_b, iters in routes:
+        if name in fresh:
+            graphs.clear()
         st0 = graphs.stats()
         with graphs.disabled():
             eager, eager_counts = counted(call_a)

@@ -1,5 +1,10 @@
-// L1: the Gauss-Jordan inverse of (B, n, n) fp64 or fp32 matrices, with
-// or without pivoting.
+// L1 and L4: the step loop on whole (B, n, n) fp64 or fp32 matrices, with
+// or without pivoting, in two modes: L1 the Gauss-Jordan inverse, L4 the
+// spec getrf. The two share the geometry, the kernels' bodies and the
+// launch; they differ in run_steps' LU flag (gj_loop.cuh) and in what the
+// store writes.
+//
+// L1, the Gauss-Jordan inverse.
 //
 // Replaces the device-side loop of gpu_matrix_inversion_tpu/ops/
 // gauss_jordan.py:_gauss_jordan_aug (its lax.fori_loop of _gj_step), which
@@ -40,6 +45,40 @@
 // ~3,000, bound by shared-memory traffic (24 64-bit accesses a row and
 // warp); the header and pivot-row reads across the cluster ~2,700; the
 // cluster barrier ~1,000. Rows in registers would remove the first.
+//
+// L4, the spec getrf: partial-pivoted LU with row swaps.
+//
+// Replaces the device-side loop of gpu_matrix_inversion_tpu/ops/lu.py:
+// _lu_factor_2d (its lax.fori_loop), which reaches no Pallas kernel. The
+// port's plain twin (ops/lu.py lu_factor_twin) issues each of its n steps
+// as ~12 tensor operations from the host. L4 serves lu_factor, lu_inverse,
+// lu_solve_matrix and slogdet below n = 256, the LU route of inverse and
+// solve below 256, and lu_inverse_refined at any n.
+//
+// Same operations as the twin, in its order, so (lu, perm, ok) equal it
+// bit for bit: per step r the pivot as L1's, the swap (the position maps:
+// rows never move, perm is the row at each place), the multipliers
+// f = x_r / pivot (IEEE division; a zero pivot divides by 1 and clears ok)
+// of the rows at places > r, x - f * v with two roundings on the columns
+// > r of every row (f = 0 above the pivot, so an infinity in the pivot row
+// spreads NaN there as in the twin, and a -0 there turns +0 as the twin's
+// does), f deposited in column r. ok = every pivot nonzero and the factor
+// finite.
+//
+// What bounds it on an H100: 2 n^3 / 3 operations (45.8 GFLOP at n = 4096:
+// 0.68 ms at the FP32 peak), or the matrix read and written once; the
+// chain's latency at small n, the update's traffic at large n. On the grid
+// branch past n ~ 1900 (fp64) the rows live in the device workspace
+// (n = 4096 fp32: 64 MB, past the 50 MB L2). Measured on an H100 80GB HBM3
+// at 700 W (chip_smoke.py phase 7, probes/loop_phases.py): ~0.63 ms at
+// (64, 128^2) fp32 (~5 us a step; torch.linalg.lu_factor 1.6 to 2.5 ms
+// over four runs), ~0.77 ms at (1, 200^2) fp64, ~178 ms at (1, 4096^2)
+// fp32 on the grid (~44 us a step, three quarters of its cycles in the
+// update): every step reads and writes the workspace's columns > r of
+// every row from device memory.
+// Skipping the finished rows (exact but where a row holds a -0 or the
+// pivot row is not finite) would save a third of that traffic; a blocked
+// update, 32 steps a pass with each element's order kept, most of it.
 #include <cuda_runtime.h>
 
 #include "gj_loop.cuh"
@@ -49,7 +88,12 @@ namespace {
 namespace cg = cooperative_groups;
 using namespace matinv::loop;
 
-// Shared memory carved for a member of an L1 job; see smem_bytes.
+// A member owns rows [lo, hi) of one (n, n) matrix; its shared memory holds
+// them (the cluster branch, and the grid branch where they fit), the
+// pivot row, its proposals (cluster), the three position maps (3 n ints),
+// the reduction scratch and a flag.
+
+// Shared memory carved for a member of an L1 or L4 job; see smem_bytes.
 template <typename T>
 struct Carve {
   T* rows;
@@ -81,7 +125,8 @@ __device__ Carve<T> carve(char* smem, int rows_per, int n, bool rows_shared,
 
 // Loads the member's rows of matrix `a` into v and resets the maps.
 template <typename T>
-__device__ void load(const T* a, T* v, int* maps, int lo, int hi, int n) {
+__device__ void load_rows(const T* a, T* v, int* maps, int lo, int hi,
+                          int n) {
   for (size_t idx = threadIdx.x; idx < (size_t)(hi - lo) * n;
        idx += kThreads)
     v[idx] = a[(size_t)lo * n + idx];
@@ -92,26 +137,9 @@ __device__ void load(const T* a, T* v, int* maps, int lo, int hi, int n) {
   __syncthreads();
 }
 
-// getInvertedMatrix (FP32.cpp:216-226): slot s of row g is the inverse's
-// element (place of g, order[s]). Returns whether every stored value is
-// finite, in every thread.
 template <typename T>
-__device__ int store(const Job<T>& jb, T* out, int n) {
-  int finite = 1;
-  for (size_t idx = threadIdx.x; idx < (size_t)(jb.hi - jb.lo) * n;
-       idx += kThreads) {
-    const int i = (int)(idx / n);
-    const int s = (int)(idx - (size_t)i * n);
-    const T x = jb.v[idx];
-    finite &= isfinite(x) ? 1 : 0;
-    out[(size_t)jb.pos_of[jb.lo + i] * n + jb.order[s]] = x;
-  }
-  return __syncthreads_and(finite);
-}
-
-template <typename T>
-__device__ Job<T> job(const Carve<T>& c, T* v, int lo, int hi, int rows_per,
-                      int n, int pivot) {
+__device__ Job<T> matrix_job(const Carve<T>& c, T* v, int lo, int hi,
+                             int rows_per, int n, int pivot) {
   Job<T> jb;
   jb.v = v;
   jb.lo = lo;
@@ -130,69 +158,17 @@ __device__ Job<T> job(const Carve<T>& c, T* v, int lo, int hi, int rows_per,
   return jb;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gauss_jordan_cluster_kernel(const T* __restrict__ a, T* __restrict__ inv,
-                            int* __restrict__ ok_out, int n, int pivot) {
-  extern __shared__ __align__(16) char smem[];
-  cg::cluster_group cl = cg::this_cluster();
-  const int nc = (int)cl.num_blocks();
-  const int rank = (int)cl.block_rank();
-  const size_t item = blockIdx.x / nc;
-  const int rows_per = (n + nc - 1) / nc;
-  const int lo = min(n, rank * rows_per);
-  const int hi = min(n, lo + rows_per);
-  const Carve<T> c = carve<T>(smem, rows_per, n, true, true);
-  load(a + item * n * n, c.rows, c.maps, lo, hi, n);
-  ClusterComm comm{cl, c.props, prop_bytes(n, sizeof(T)), c.flag};
-  const Job<T> jb = job(c, c.rows, lo, hi, rows_per, n, pivot);
-  const int ok = run_steps<T, true>(comm, jb, nullptr);
-  const int finite = store(jb, inv + item * n * n, n);
-  const int all = comm.all(ok && finite);
-  if (rank == 0 && threadIdx.x == 0) ok_out[item] = all;
-}
-
-// work: the (n, n) workspace of the rows when they do not fit in shared
-// memory; props: (2, g) proposals; bar: one unsigned, zero; flags: g ints.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gauss_jordan_grid_kernel(const T* __restrict__ a, T* __restrict__ inv,
-                         int* __restrict__ ok_out, T* work, char* props,
-                         unsigned* bar, int* flags, int batch, int n,
-                         int pivot, int rows_shared) {
-  extern __shared__ __align__(16) char smem[];
-  const int g = (int)gridDim.x;
-  const int rank = (int)blockIdx.x;
-  const int rows_per = (n + g - 1) / g;
-  const int lo = min(n, rank * rows_per);
-  const int hi = min(n, lo + rows_per);
-  const Carve<T> c = carve<T>(smem, rows_per, n, rows_shared, false);
-  T* v = rows_shared ? c.rows : work + (size_t)lo * n;
-  GridComm comm{props, prop_bytes(n, sizeof(T)), bar, flags, g, rank};
-  const Job<T> jb = job(c, v, lo, hi, rows_per, n, pivot);
-  for (int item = 0; item < batch; ++item) {
-    load(a + (size_t)item * n * n, v, c.maps, lo, hi, n);
-    const int ok = run_steps<T, true>(comm, jb, nullptr);
-    const int finite = store(jb, inv + (size_t)item * n * n, n);
-    // The group barrier inside all() also keeps the next matrix's
-    // proposals from overwriting ones a member may still read.
-    const int all = comm.all(ok && finite);
-    if (rank == 0 && threadIdx.x == 0) ok_out[item] = all;
-  }
-}
-
+// The cluster branch: one cluster of `cluster` CTAs a matrix, to n = 511.
 constexpr int kMaxCluster = 16;
 constexpr int kOnChipMaxN = 511;
 
-template <typename T>
-const void* cluster_kernel() {
-  return reinterpret_cast<const void*>(&gauss_jordan_cluster_kernel<T>);
-}
-
-cudaError_t cluster_config(const void* kernel, int batch, int n, int cluster,
-                           int smem, int tsize, cudaStream_t stream,
-                           cudaLaunchConfig_t* cfg,
-                           cudaLaunchAttribute* attr) {
+// The launch configuration of a cluster-branch kernel for `batch` (n, n)
+// matrices; cudaErrorInvalidValue on a geometry it cannot serve.
+inline cudaError_t cluster_config(const void* kernel, int batch, int n,
+                                  int cluster, int smem, int tsize,
+                                  cudaStream_t stream,
+                                  cudaLaunchConfig_t* cfg,
+                                  cudaLaunchAttribute* attr) {
   const int rows_per = cluster > 0 ? (n + cluster - 1) / cluster : 0;
   if (batch < 1 || n < 1 || n > kOnChipMaxN || cluster < 1 ||
       cluster > kMaxCluster || smem < 0 || (size_t)smem > kMaxShared ||
@@ -218,21 +194,151 @@ cudaError_t cluster_config(const void* kernel, int batch, int n, int cluster,
   return cudaSuccess;
 }
 
+// The store of a finished member, in every thread; returns whether every
+// stored value is finite. L1 (getInvertedMatrix, FP32.cpp:216-226): slot s
+// of row g is the inverse's element (place of g, order[s]). L4: row g goes
+// to its place, and perm[place] = g.
+template <typename T, bool LU>
+__device__ int store(const Job<T>& jb, T* out, long long* perm, int n) {
+  int finite = 1;
+  for (size_t idx = threadIdx.x; idx < (size_t)(jb.hi - jb.lo) * n;
+       idx += kThreads) {
+    const int i = (int)(idx / n);
+    const int s = (int)(idx - (size_t)i * n);
+    const T x = jb.v[idx];
+    finite &= isfinite(x) ? 1 : 0;
+    out[(size_t)jb.pos_of[jb.lo + i] * n + (LU ? s : jb.order[s])] = x;
+  }
+  if (LU)
+    for (int g = jb.lo + threadIdx.x; g < jb.hi; g += kThreads)
+      perm[jb.pos_of[g]] = g;
+  return __syncthreads_and(finite);
+}
+
+// out: (batch, n, n), the inverse (L1) or the packed factor (L4); perm:
+// (batch, n) int64, L4's only.
+template <typename T, bool LU>
+__device__ void cluster_body(const T* __restrict__ a, T* __restrict__ out,
+                             long long* __restrict__ perm,
+                             int* __restrict__ ok_out, int n, int pivot) {
+  extern __shared__ __align__(16) char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int nc = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const size_t item = blockIdx.x / nc;
+  const int rows_per = (n + nc - 1) / nc;
+  const int lo = min(n, rank * rows_per);
+  const int hi = min(n, lo + rows_per);
+  const Carve<T> c = carve<T>(smem, rows_per, n, true, true);
+  load_rows(a + item * n * n, c.rows, c.maps, lo, hi, n);
+  ClusterComm comm{cl, c.props, prop_bytes(n, sizeof(T)), c.flag};
+  const Job<T> jb = matrix_job(c, c.rows, lo, hi, rows_per, n, pivot);
+  const int ok = run_steps<T, true, LU>(comm, jb, nullptr);
+  const int finite =
+      store<T, LU>(jb, out + item * n * n, LU ? perm + item * n : nullptr, n);
+  const int all = comm.all(ok && finite);
+  if (rank == 0 && threadIdx.x == 0) ok_out[item] = all;
+}
+
+// work: the (n, n) workspace of the rows when they do not fit in shared
+// memory; props: (2, g) proposals; bar: one unsigned, zero; flags: g ints.
+template <typename T, bool LU>
+__device__ void grid_body(const T* __restrict__ a, T* __restrict__ out,
+                          long long* __restrict__ perm,
+                          int* __restrict__ ok_out, T* work, char* props,
+                          unsigned* bar, int* flags, int batch, int n,
+                          int pivot, int rows_shared) {
+  extern __shared__ __align__(16) char smem[];
+  const int g = (int)gridDim.x;
+  const int rank = (int)blockIdx.x;
+  const int rows_per = (n + g - 1) / g;
+  const int lo = min(n, rank * rows_per);
+  const int hi = min(n, lo + rows_per);
+  const Carve<T> c = carve<T>(smem, rows_per, n, rows_shared, false);
+  T* v = rows_shared ? c.rows : work + (size_t)lo * n;
+  GridComm comm{props, prop_bytes(n, sizeof(T)), bar, flags, g, rank};
+  const Job<T> jb = matrix_job(c, v, lo, hi, rows_per, n, pivot);
+  for (int item = 0; item < batch; ++item) {
+    load_rows(a + (size_t)item * n * n, v, c.maps, lo, hi, n);
+    const int ok = run_steps<T, true, LU>(comm, jb, nullptr);
+    const int finite =
+        store<T, LU>(jb, out + (size_t)item * n * n,
+                     LU ? perm + (size_t)item * n : nullptr, n);
+    // The group barrier inside all() also keeps the next matrix's
+    // proposals from overwriting ones a member may still read.
+    const int all = comm.all(ok && finite);
+    if (rank == 0 && threadIdx.x == 0) ok_out[item] = all;
+  }
+}
+
+// One kernel a mode and branch, so that a profile tells L1 from L4.
 template <typename T>
-int launch(const void* a, void* inv, int* ok, void* work, void* props,
-           void* bar, void* flags, int batch, int n, int pivot, int branch,
-           int ctas, int rows_shared, int smem, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+gauss_jordan_cluster_kernel(const T* __restrict__ a, T* __restrict__ out,
+                            long long* __restrict__ perm,
+                            int* __restrict__ ok_out, int n, int pivot) {
+  cluster_body<T, false>(a, out, perm, ok_out, n, pivot);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lu_factor_cluster_kernel(const T* __restrict__ a, T* __restrict__ out,
+                         long long* __restrict__ perm,
+                         int* __restrict__ ok_out, int n, int pivot) {
+  cluster_body<T, true>(a, out, perm, ok_out, n, pivot);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gauss_jordan_grid_kernel(const T* __restrict__ a, T* __restrict__ out,
+                         long long* __restrict__ perm,
+                         int* __restrict__ ok_out, T* work, char* props,
+                         unsigned* bar, int* flags, int batch, int n,
+                         int pivot, int rows_shared) {
+  grid_body<T, false>(a, out, perm, ok_out, work, props, bar, flags, batch,
+                      n, pivot, rows_shared);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lu_factor_grid_kernel(const T* __restrict__ a, T* __restrict__ out,
+                      long long* __restrict__ perm, int* __restrict__ ok_out,
+                      T* work, char* props, unsigned* bar, int* flags,
+                      int batch, int n, int pivot, int rows_shared) {
+  grid_body<T, true>(a, out, perm, ok_out, work, props, bar, flags, batch, n,
+                     pivot, rows_shared);
+}
+
+template <typename T>
+const void* cluster_kernel(int lu) {
+  return lu ? reinterpret_cast<const void*>(&lu_factor_cluster_kernel<T>)
+            : reinterpret_cast<const void*>(&gauss_jordan_cluster_kernel<T>);
+}
+
+template <typename T>
+const void* grid_kernel(int lu) {
+  return lu ? reinterpret_cast<const void*>(&lu_factor_grid_kernel<T>)
+            : reinterpret_cast<const void*>(&gauss_jordan_grid_kernel<T>);
+}
+
+template <typename T>
+int launch(const void* a, void* out, void* perm, int* ok, void* work,
+           void* props, void* bar, void* flags, int batch, int n, int lu,
+           int pivot, int branch, int ctas, int rows_shared, int smem,
+           cudaStream_t stream) {
   const T* in = static_cast<const T*>(a);
-  T* out = static_cast<T*>(inv);
+  T* dst = static_cast<T*>(out);
+  long long* pm = static_cast<long long*>(perm);
+  if (lu && pm == nullptr) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err;
   if (branch == 0) {
-    const void* kernel = cluster_kernel<T>();
+    const void* kernel = cluster_kernel<T>(lu);
     err = cluster_config(kernel, batch, n, ctas, smem, sizeof(T), stream,
                          &cfg, &attr);
     if (err != cudaSuccess) return err;
-    void* args[] = {&in, &out, &ok, &n, &pivot};
+    void* args[] = {&in, &dst, &pm, &ok, &n, &pivot};
     err = cudaLaunchKernelExC(&cfg, kernel, args);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
@@ -244,8 +350,7 @@ int launch(const void* a, void* inv, int* ok, void* work, void* props,
       (size_t)smem <
           smem_bytes(rows_per, n, 3 * n, sizeof(T), rows_shared, false))
     return cudaErrorInvalidValue;
-  const void* kernel =
-      reinterpret_cast<const void*>(&gauss_jordan_grid_kernel<T>);
+  const void* kernel = grid_kernel<T>(lu);
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -253,44 +358,49 @@ int launch(const void* a, void* inv, int* ok, void* work, void* props,
   char* pr = static_cast<char*>(props);
   unsigned* br = static_cast<unsigned*>(bar);
   int* fl = static_cast<int*>(flags);
-  void* args[] = {&in, &out, &ok, &wk, &pr, &br, &fl, &batch, &n, &pivot,
-                  &rows_shared};
-  err = matinv::loop::launch_grid(kernel, ctas, smem, stream, args);
+  void* args[] = {&in, &dst, &pm, &ok, &wk, &pr, &br, &fl, &batch, &n,
+                  &pivot, &rows_shared};
+  err = launch_grid(kernel, ctas, smem, stream, args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// a: (batch, n, n) input; inv: (batch, n, n) inverse; ok: (batch,) int32;
-// fp64 != 0 means double, else float. branch 0: one cluster of `ctas` CTAs
-// per matrix (n <= 511; work, props, bar and flags unused); branch 1: a
-// persistent grid of `ctas` CTAs, one matrix at a time, with work ((n, n)
-// values, unused when rows_shared), props ((2, ctas) proposals), bar (one
-// unsigned, zero) and flags (ctas ints), launched cooperatively. smem: the
-// bytes of shared memory a CTA gets (the wrapper's geometry,
-// ops/gauss_jordan.py loop_geometry). Returns the cudaError_t of the
-// launch.
-extern "C" int matinv_gauss_jordan(const void* a, void* inv, int* ok,
-                                   void* work, void* props, void* bar,
-                                   void* flags, int batch, int n, int fp64,
-                                   int pivot, int branch, int ctas,
-                                   int rows_shared, int smem,
+// a: (batch, n, n) input; out: (batch, n, n), the inverse (lu == 0, L1) or
+// the packed factor (lu != 0, L4); perm: (batch, n) int64, L4's (unused by
+// L1); ok: (batch,) int32; fp64 != 0 means double, else float. branch 0:
+// one cluster of `ctas` CTAs per matrix (n <= 511; work, props, bar and
+// flags unused); branch 1: a persistent grid of `ctas` CTAs, one matrix at
+// a time, with work ((n, n) values, unused when rows_shared), props
+// ((2, ctas) proposals), bar (one unsigned, zero) and flags (ctas ints),
+// launched cooperatively. smem: the bytes of shared memory a CTA gets (the
+// wrapper's geometry, ops/gauss_jordan.py loop_geometry). Returns the
+// cudaError_t of the launch.
+extern "C" int matinv_gauss_jordan(const void* a, void* out, void* perm,
+                                   int* ok, void* work, void* props,
+                                   void* bar, void* flags, int batch, int n,
+                                   int fp64, int lu, int pivot, int branch,
+                                   int ctas, int rows_shared, int smem,
                                    void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  return fp64 ? launch<double>(a, inv, ok, work, props, bar, flags, batch, n,
-                               pivot, branch, ctas, rows_shared, smem, st)
-              : launch<float>(a, inv, ok, work, props, bar, flags, batch, n,
-                              pivot, branch, ctas, rows_shared, smem, st);
+  return fp64 ? launch<double>(a, out, perm, ok, work, props, bar, flags,
+                               batch, n, lu, pivot, branch, ctas,
+                               rows_shared, smem, st)
+              : launch<float>(a, out, perm, ok, work, props, bar, flags,
+                              batch, n, lu, pivot, branch, ctas, rows_shared,
+                              smem, st);
 }
 
-// Clusters of the cluster branch with the given geometry that the card can
-// hold at once (cudaOccupancyMaxActiveClusters; 0 means the launch would be
-// refused). Returns the cudaError_t of the query.
-extern "C" int matinv_gauss_jordan_clusters(int n, int fp64, int cluster,
-                                            int smem, int* clusters) {
+// Clusters of the cluster branch of mode `lu` (as above) with the given
+// geometry that the card can hold at once (cudaOccupancyMaxActiveClusters;
+// 0 means the launch would be refused). Returns the cudaError_t of the
+// query.
+extern "C" int matinv_gauss_jordan_clusters(int n, int fp64, int lu,
+                                            int cluster, int smem,
+                                            int* clusters) {
   const void* kernel =
-      fp64 ? cluster_kernel<double>() : cluster_kernel<float>();
+      fp64 ? cluster_kernel<double>(lu) : cluster_kernel<float>(lu);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = cluster_config(kernel, 1, n, cluster, smem,

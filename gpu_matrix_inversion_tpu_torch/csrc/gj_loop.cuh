@@ -1,6 +1,7 @@
-// The Gauss-Jordan step loop shared by L1 (gauss_jordan.cu, the pivot-block
-// and spec inverse) and L2 (logical_panel.cu, the logical panel's pivot
-// search): the two device-side loops of the JAX package that reach no
+// The Gauss-Jordan step loop shared by L1 and L4 (gauss_jordan.cu, the
+// pivot-block and spec inverse and the spec getrf), L2 (logical_panel.cu,
+// the logical panel's pivot search) and L3 (lu_panel.cu, the blocked
+// getrf's panel): device-side loops of the JAX package that reach no
 // Pallas kernel.
 //
 // A job is a working matrix of `rows` rows and `w` columns, cut by rows
@@ -20,6 +21,11 @@
 //   every member updates its rows, x - f * v with two roundings
 //   (__dmul_rn then __dsub_rn; nvcc would contract them into one FMA by
 //   default), as the plain PyTorch loops compute `aug -= col * norm`;
+//   in the LU mode (L3, L4) the row stays unnormalized, the multiplier is
+//   f = x_r / pivot (an IEEE division) on the rows the step eliminates and
+//   0 on every other row, every row takes x - f * v on the columns right
+//   of the step (0 * inf makes NaN there, as in the plain loops, which
+//   subtract from the whole matrix), and f is deposited in column r;
 //   every member publishes its proposal for step r + 1 into the other
 //   parity of its two proposal buffers.
 // One barrier a step suffices: a member writes the buffers of step r's
@@ -275,10 +281,11 @@ struct Job {
   int pivot;
   T* nr;         // shared: the normalized pivot row (w)
   Cand* red;     // shared: kWarps candidates
-  // L1: shared position maps of all rows (the swaps the plain loop makes):
-  // pos_of[g] the place of row g, phys_at[p] the row at place p, order[r]
-  // the pivot row of step r. L2: state[i] of the member's row lo + i: bit
-  // 0 used before the panel, bit 1 pivot row of an earlier step; kb.
+  // L1, L4: shared position maps of all rows (the swaps the plain loop
+  // makes): pos_of[g] the place of row g, phys_at[p] the row at place p,
+  // order[r] the pivot row of step r. L2, L3: state[i] of the member's row
+  // lo + i: bit 0 used before the panel, bit 1 pivot row of an earlier
+  // step; kb.
   int* pos_of;
   int* phys_at;
   int* order;
@@ -287,12 +294,12 @@ struct Job {
 };
 
 // Publishes the member's proposal for step s (column s), in every thread.
-// L1 (INV) offers every slot of the row, L2 its columns s .. w - 1.
-// Every row of the member is a candidate: the eligible ones (L1: place
-// >= s; L2: unused) by their key, the others with key -1. With `warps`
-// the caller has left each warp's best candidate in red[] (and a block
-// barrier since); else the keys are taken here.
-template <typename T, bool INV, class Comm>
+// L1 (INV without LU) offers every slot of the row, L2, L3 and L4 its
+// columns s .. w - 1. Every row of the member is a candidate: the eligible
+// ones (INV: place >= s; else unused) by their key, the others with key
+// -1. With `warps` the caller has left each warp's best candidate in red[]
+// (and a block barrier since); else the keys are taken here.
+template <typename T, bool INV, bool LU, class Comm>
 __device__ void propose(Comm& comm, const Job<T>& jb, int s, bool warps) {
   const int tid = threadIdx.x;
   const int nrow = jb.hi - jb.lo;
@@ -324,7 +331,7 @@ __device__ void propose(Comm& comm, const Job<T>& jb, int s, bool warps) {
   if (c.row >= 0) {
     T* vals = reinterpret_cast<T*>(h + kHeader);
     const T* src = jb.v + (size_t)(c.row - jb.lo) * jb.w;
-    for (int j = (INV ? 0 : s) + tid; j < jb.w; j += kThreads)
+    for (int j = (INV && !LU ? 0 : s) + tid; j < jb.w; j += kThreads)
       vals[j] = src[j];
   }
 }
@@ -345,7 +352,12 @@ __device__ void propose(Comm& comm, const Job<T>& jb, int s, bool warps) {
 // that can still be pivot rows (with pivoting the unused rows, without it
 // every row not yet a pivot row). The plain loop updates the whole strip,
 // a scratch copy it never returns.
-template <typename T, bool INV, class Comm>
+//
+// LU (L3 without INV, L4 with it) updates columns > r of every row, as the
+// plain loops do, and deposits the multiplier in column r of the rows the
+// step eliminates: INV those at places > r (the rows below the pivot after
+// the swap), else the unused rows other than the pivot row.
+template <typename T, bool INV, bool LU, class Comm>
 __device__ int run_steps(Comm& comm, const Job<T>& jb, int* pivrows) {
   constexpr bool G = Comm::kGlobal;
   const int tid = threadIdx.x;
@@ -354,7 +366,7 @@ __device__ int run_steps(Comm& comm, const Job<T>& jb, int* pivrows) {
   const int nrow = jb.hi - jb.lo;
   const int members = comm.members();
   int ok = 1;
-  propose<T, INV>(comm, jb, 0, false);
+  propose<T, INV, LU>(comm, jb, 0, false);
   for (int r = 0; r < jb.steps; ++r) {
     const int par = r & 1;
     comm.sync();
@@ -379,8 +391,9 @@ __device__ int run_steps(Comm& comm, const Job<T>& jb, int* pivrows) {
     const T piv = ld<G>(prow + r);
     ok &= piv != T(0);
     const T pd = piv == T(0) ? T(1) : piv;
-    for (int j = (INV ? 0 : r + 1) + tid; j < jb.w; j += kThreads)
-      jb.nr[j] = div((INV && j == r) ? T(1) : ld<G>(prow + j), pd);
+    for (int j = (INV && !LU ? 0 : r + 1) + tid; j < jb.w; j += kThreads)
+      jb.nr[j] = LU ? ld<G>(prow + j)
+                    : div((INV && j == r) ? T(1) : ld<G>(prow + j), pd);
     if (tid == 0) {
       if (INV) {
         const int p = jb.pos_of[prow_id];
@@ -402,16 +415,18 @@ __device__ int run_steps(Comm& comm, const Job<T>& jb, int* pivrows) {
     // for step r + 1 (the row's column r + 1 as it leaves the update).
     const int tn = r + 1;
     const bool keys = jb.pivot && tn < jb.steps;
-    const int j0 = INV ? 0 : r + 1;
+    const int j0 = INV && !LU ? 0 : r + 1;
     Cand wbest = empty_cand();
     for (int i = warp; i < nrow; i += kWarps) {
       T* x = jb.v + (size_t)i * jb.w;
       const int g = jb.lo + i;
-      if (INV && g == prow_id) {  // the deposit
+      // LU: whether the step eliminates the row (and deposits f).
+      const bool elim = LU && (INV ? jb.pos_of[g] > r : jb.state[i] == 0);
+      if (INV && !LU && g == prow_id) {  // the deposit
         for (int j = lane; j < jb.w; j += 32) x[j] = jb.nr[j];
-      } else if (INV || !((jb.state[i] & 2) ||
-                          (jb.pivot && (jb.state[i] & 1)))) {
-        const T f = x[r];
+      } else if (LU || INV ||
+                 !((jb.state[i] & 2) || (jb.pivot && (jb.state[i] & 1)))) {
+        const T f = !LU ? x[r] : elim ? div(x[r], pd) : T(0);
         __syncwarp();  // every lane has f before the lane of slot r writes
         for (int jc = j0 + lane; jc < jb.w; jc += 32 * kU) {
           T xs[kU], ns[kU];
@@ -427,9 +442,11 @@ __device__ int run_steps(Comm& comm, const Job<T>& jb, int* pivrows) {
           for (int u = 0; u < kU; ++u) {
             const int j = jc + 32 * u;
             if (j < jb.w)
-              x[j] = sub((INV && j == r) ? T(0) : xs[u], mul(f, ns[u]));
+              x[j] = sub((INV && !LU && j == r) ? T(0) : xs[u],
+                         mul(f, ns[u]));
           }
         }
+        if (elim && lane == 0) x[r] = f;
       }
       if (keys) {
         const bool elig = INV ? jb.pos_of[g] >= tn : jb.state[i] == 0;
@@ -444,7 +461,7 @@ __device__ int run_steps(Comm& comm, const Job<T>& jb, int* pivrows) {
     }
     if (keys && lane == 0) jb.red[warp] = wbest;
     __syncthreads();
-    if (tn < jb.steps) propose<T, INV>(comm, jb, tn, keys);
+    if (tn < jb.steps) propose<T, INV, LU>(comm, jb, tn, keys);
   }
   __syncthreads();
   return ok;

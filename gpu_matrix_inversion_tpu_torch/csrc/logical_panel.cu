@@ -90,7 +90,7 @@ logical_panel_kernel(const T* __restrict__ strip, int lds,
   jb.pos_of = jb.phys_at = jb.order = nullptr;
   jb.state = state;
   jb.kb = kb;
-  const int ok = run_steps<T, false>(comm, jb, pivrows);
+  const int ok = run_steps<T, false, false>(comm, jb, pivrows);
   if (rank == 0 && threadIdx.x == 0) *ok_out = ok;
 }
 

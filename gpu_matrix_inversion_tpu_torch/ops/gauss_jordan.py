@@ -157,32 +157,72 @@ def sm_count(index: int) -> int:
 _plans: dict = {}
 
 
-def loop_plan(n: int, batch: int, dtype: torch.dtype, device):
-    """``(geometry, clusters)``: the :class:`LoopGeometry` L1 launches with
-    on ``device`` and, on the cluster branch, how many such clusters the
-    card holds at once (``cudaOccupancyMaxActiveClusters``; None on the
-    grid branch, whose cooperative launch the runtime admits or refuses).
-    Raises ``RuntimeError`` where the card admits no cluster."""
+def loop_plan(n: int, batch: int, dtype: torch.dtype, device, *,
+              lu: bool = False):
+    """``(geometry, clusters)``: the :class:`LoopGeometry` L1 (or, with
+    ``lu``, L4, the spec getrf of ``ops/lu.py``, which shares its kernels'
+    bodies) launches with on ``device`` and, on the cluster branch, how
+    many such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters`` of that mode's cluster kernel; None
+    on the grid branch, whose cooperative launch the runtime admits or
+    refuses). Raises ``RuntimeError`` where the card admits no cluster."""
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
     itemsize = dtype.itemsize
     geo = loop_geometry(n, batch, itemsize, sm_count(index))
     if geo.branch != "cluster":
         return geo, None
-    key = (n, itemsize, geo.ctas, index)
+    key = (lu, n, itemsize, geo.ctas, index)
     if key not in _plans:
         count = ctypes.c_int(0)
         with torch.cuda.device(index):
             err = cuda_build.load().matinv_gauss_jordan_clusters(
-                n, int(itemsize == 8), geo.ctas, geo.smem,
+                n, int(itemsize == 8), int(lu), geo.ctas, geo.smem,
                 ctypes.addressof(count))
         _plans[key] = (err, count.value)
     err, count = _plans[key]
     if err != 0 or count < 1:
-        raise RuntimeError(f"L1 at n={n}: the card admits no cluster of "
-                           f"{geo.ctas} CTAs with {geo.smem} bytes each "
-                           f"(error {err}, {count} clusters)")
+        raise RuntimeError(f"{'L4' if lu else 'L1'} at n={n}: the card "
+                           f"admits no cluster of {geo.ctas} CTAs with "
+                           f"{geo.smem} bytes each (error {err}, {count} "
+                           f"clusters)")
     return geo, count
+
+
+def launch_matrix_loop(a: torch.Tensor, *, lu: bool, pivot: bool):
+    """Launch L1 (``lu`` False: the inverse) or L4 (``lu`` True: the
+    packed factor and its int64 perm) on a contiguous fp32 or fp64
+    (B, n, n) CUDA tensor, at :func:`loop_plan`'s geometry; returns
+    ``(out, perm or None, ok)`` with ``ok`` int32. Counts nothing: each
+    wrapper counts its own launches."""
+    bsz, n, _ = a.shape
+    dev = a.device
+    geo, _ = loop_plan(n, bsz, a.dtype, dev, lu=lu)
+    lib = cuda_build.load()
+    out = torch.empty_like(a)
+    perm = (torch.empty((bsz, n), dtype=torch.long, device=dev) if lu
+            else None)
+    ok = torch.empty(bsz, dtype=torch.int32, device=dev)
+    work = props = bar = flags = None
+    if geo.branch == "grid":
+        if not geo.rows_shared:
+            work = torch.empty((n, n), dtype=a.dtype, device=dev)
+        props = torch.empty(grid_props_bytes(geo.ctas, n, a.element_size()),
+                            dtype=torch.uint8, device=dev)
+        bar = torch.zeros(1, dtype=torch.int32, device=dev)
+        flags = torch.empty(geo.ctas, dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.matinv_gauss_jordan(
+        a.data_ptr(), out.data_ptr(), ptr(perm), ok.data_ptr(), ptr(work),
+        ptr(props), ptr(bar), ptr(flags), bsz, n,
+        int(a.dtype == torch.float64), int(lu), int(pivot),
+        int(geo.branch == "grid"), geo.ctas, int(geo.rows_shared), geo.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "L4 lu_factor" if lu else "L1 gauss_jordan")
+    return out, perm, ok
 
 
 def _augment(a: torch.Tensor) -> torch.Tensor:
@@ -268,31 +308,7 @@ def _gauss_jordan_aug(a: torch.Tensor, *, pivot: bool):
         return inv.to(a.dtype), ok
     if a.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"L1 takes float32 or float64, got {a.dtype}")
-    a = a.contiguous()
-    bsz, n, _ = a.shape
-    geo, _ = loop_plan(n, bsz, a.dtype, a.device)
-    lib = cuda_build.load()
-    dev = a.device
-    inv = torch.empty_like(a)
-    ok = torch.empty(bsz, dtype=torch.int32, device=dev)
-    work = props = bar = flags = None
-    if geo.branch == "grid":
-        if not geo.rows_shared:
-            work = torch.empty((n, n), dtype=a.dtype, device=dev)
-        props = torch.empty(grid_props_bytes(geo.ctas, n, a.element_size()),
-                            dtype=torch.uint8, device=dev)
-        bar = torch.zeros(1, dtype=torch.int32, device=dev)
-        flags = torch.empty(geo.ctas, dtype=torch.int32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = lib.matinv_gauss_jordan(
-        a.data_ptr(), inv.data_ptr(), ok.data_ptr(), ptr(work), ptr(props),
-        ptr(bar), ptr(flags), bsz, n, int(a.dtype == torch.float64),
-        int(pivot), int(geo.branch == "grid"), geo.ctas, int(geo.rows_shared),
-        geo.smem, torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "L1 gauss_jordan")
+    inv, _, ok = launch_matrix_loop(a.contiguous(), lu=False, pivot=pivot)
     if not cuda_build.capturing():   # a graph's record is no launch
         _gauss_jordan_aug.launches += 1
     return inv, ok != 0

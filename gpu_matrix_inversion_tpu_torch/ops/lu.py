@@ -8,8 +8,13 @@ and the determinant. Storage follows LAPACK: unit-lower L and U packed in
 one matrix plus a row permutation ``perm`` (PA = LU, output row i is input
 row perm[i]).
 
-- The spec (:func:`lu_factor`, :func:`lu_solve`, :func:`lu_inverse`) is
-  plain PyTorch, one step at a time.
+- The spec (:func:`lu_factor`, :func:`lu_solve`, :func:`lu_inverse`): the
+  JAX package runs its loops as on-device ``lax.fori_loop`` loops. Here the
+  getrf loop is kernel L4 (``csrc/gauss_jordan.cu``, wrapper
+  :func:`_lu_factor_batched`) and the getrs loops kernel L5
+  (``csrc/lu_solve.cu``, :func:`_lu_solve_batched`); a CPU tensor runs
+  their plain twins (:func:`lu_factor_twin`, :func:`lu_solve_twin`), one
+  step at a time, whose bits the kernels reproduce.
 - The blocked getrf (:func:`lu_factor_blocked`) rides the blocked
   Gauss-Jordan path's machinery. For fp32 the panel pivots come from kernel
   K3 (``ops/blocked.pivot_search``; partial-pivoted GJ and LU choose the
@@ -17,7 +22,9 @@ row perm[i]).
   receive the same updates under both), the pivot block factors in kernel
   K5 (``csrc/small_lu.cu``, no pivoting: K3 fixed the order), and the rest
   of the panel is assembled with triangular solves and GEMMs. Other dtypes
-  run the plain panel loop :func:`_lu_panel`, as the reference does.
+  run the panel loop as the reference does, here kernel L3
+  (``csrc/lu_panel.cu``, wrapper :func:`_lu_panel`, twin
+  :func:`lu_panel_twin`).
 - Triangular solves are ``torch.linalg.solve_triangular`` (the reference's
   ``lax.linalg.triangular_solve``; ``left_side=False`` is ``left=False``)
   and the GEMMs are library calls, in true FP32 (TF32 off) whatever the
@@ -38,8 +45,11 @@ import torch
 
 from gpu_matrix_inversion_tpu_torch.ops.blocked import (_default_group_size,
                                                         _select_block_params,
+                                                        logical_geometry,
                                                         pivot_search)
-from gpu_matrix_inversion_tpu_torch.ops.fused import _fms
+from gpu_matrix_inversion_tpu_torch.ops.fused import H100_SMS, _fms
+from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
+    grid_props_bytes, launch_matrix_loop, sm_count)
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
 from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
@@ -71,13 +81,15 @@ def _tri_solve(t, rhs, *, lower: bool, left: bool = True,
 
 
 # --------------------------------------------------------------------------
-# The spec: getrf / getrs / getri one step at a time (lu.py:29-157)
+# The spec: getrf / getrs / getri (lu.py:29-157), kernels L4 and L5
 # --------------------------------------------------------------------------
 
 
-def _lu_factor_batched(a: torch.Tensor, *, pivot: bool):
+def lu_factor_twin(a: torch.Tensor, *, pivot: bool):
     """Partial-pivoted LU of (B, n, n) with real row swaps (the first max
-    of |column r| over rows >= r); returns ``(lu, perm, ok)``."""
+    of |column r| over rows >= r), L4's plain twin; returns ``(lu, perm,
+    ok)``. ``calls`` counts its calls."""
+    lu_factor_twin.calls += 1
     bsz, n, _ = a.shape
     dev = a.device
     items = torch.arange(bsz, device=dev)
@@ -113,6 +125,46 @@ def _lu_factor_batched(a: torch.Tensor, *, pivot: bool):
     return lu, perm, ok
 
 
+lu_factor_twin.calls = 0
+
+
+def _device_index(t: torch.Tensor) -> int:
+    index = t.device.index
+    return torch.cuda.current_device() if index is None else index
+
+
+def _lu_factor_batched(a: torch.Tensor, *, pivot: bool):
+    """L4 (``csrc/gauss_jordan.cu``, L1's kernels in their LU mode):
+    partial-pivoted LU of (B, n, n) with row swaps; ``(lu, perm, ok)`` of
+    :func:`lu_factor_twin` bit for bit, perm int64.
+
+    A CPU tensor runs the twin. A CUDA tensor launches L4 in fp64 or fp32
+    through L1's launcher (``gauss_jordan.launch_matrix_loop``: a cluster
+    per matrix to n = 511, a persistent grid past it); bf16 and fp16 are
+    computed in fp32 and the factor returned in the input's dtype, as L1
+    does."""
+    if a.ndim != 3 or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"L4 takes (B, n, n), got {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return lu_factor_twin(a, pivot=pivot)
+    if a.device.type != "cuda":
+        raise ValueError(f"L4 runs on cuda (or its twin on cpu), not "
+                         f"{a.device}")
+    if a.dtype in (torch.bfloat16, torch.float16):
+        lu, perm, ok = _lu_factor_batched(a.float(), pivot=pivot)
+        return lu.to(a.dtype), perm, ok
+    if a.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"L4 takes float32 or float64, got {a.dtype}")
+    lu, perm, ok = launch_matrix_loop(a.contiguous(), lu=True, pivot=pivot)
+    if not cuda_build.capturing():   # a graph's record is no launch
+        _lu_factor_batched.launches += 1
+    return lu, perm, ok != 0
+
+
+_lu_factor_batched.launches = 0
+
+
+@compiled
 def lu_factor(a: torch.Tensor, *, pivot: bool = True):
     """getrf (the spec): ``(lu, perm, ok)`` with PA = LU, batched over
     leading axes. ``perm`` maps output row i to input row perm[i]."""
@@ -123,9 +175,10 @@ def lu_factor(a: torch.Tensor, *, pivot: bool = True):
             ok.reshape(a.shape[:-2]))
 
 
-def _lu_solve_batched(lu: torch.Tensor, perm: torch.Tensor,
-                      b: torch.Tensor):
-    """getrs (the spec) on (B, n, n), (B, n), (B, n, k)."""
+def lu_solve_twin(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor):
+    """getrs (the spec) on (B, n, n), (B, n), (B, n, k), L5's plain twin:
+    ``(x, ok)``. ``calls`` counts its calls."""
+    lu_solve_twin.calls += 1
     n = lu.shape[-1]
     y = torch.take_along_dim(b, perm.long()[:, :, None], dim=1)
     for j in range(n):                   # forward: L is unit lower
@@ -142,6 +195,79 @@ def _lu_solve_batched(lu: torch.Tensor, perm: torch.Tensor,
     return y, ok
 
 
+lu_solve_twin.calls = 0
+
+# L5 gives a CTA at most this many right-hand-side columns.
+LU_SOLVE_MAX_COLS = 16
+
+
+def lu_solve_geometry(batch: int, k: int, sms: int = H100_SMS) -> int:
+    """The right-hand-side columns a CTA of L5 takes: LU_SOLVE_MAX_COLS,
+    halved (to 1) while the (matrix, column tile) CTAs leave SMs idle.
+    (1, k = 16): 1, so 16 CTAs; (1, k = 4096): 16, so 256; (64, k = 128):
+    16, so 512."""
+    kc = LU_SOLVE_MAX_COLS
+    while kc > 1 and batch * -(-k // kc) < sms:
+        kc //= 2
+    return kc
+
+
+def _lu_solve_batched(lu: torch.Tensor, perm: torch.Tensor,
+                      b: torch.Tensor):
+    """L5 (``csrc/lu_solve.cu``): getrs on (B, n, n), (B, n), (B, n, k);
+    ``(x, ok)`` of :func:`lu_solve_twin` bit for bit.
+
+    A CPU tensor runs the twin. A CUDA tensor launches L5 in fp64 or fp32,
+    one CTA a (matrix, tile of :func:`lu_solve_geometry` columns); bf16 and
+    fp16 are computed in fp32 and x returned in the input's dtype. Where
+    b's dtype differs from the factor's, the solve runs in the wider of the
+    two and x is returned in b's dtype, as the twin returns it: the twin's
+    bits where b is the wider, else rounded once where the twin rounds y
+    into b's dtype at every step."""
+    if (lu.ndim != 3 or lu.shape[-1] != lu.shape[-2] or b.ndim != 3
+            or perm.shape != lu.shape[:2] or b.shape[:2] != lu.shape[:2]):
+        raise ValueError(f"L5 takes (B, n, n), (B, n) and (B, n, k), got "
+                         f"{tuple(lu.shape)}, {tuple(perm.shape)} and "
+                         f"{tuple(b.shape)}")
+    if lu.device.type == "cpu":
+        return lu_solve_twin(lu, perm, b)
+    if lu.device.type != "cuda":
+        raise ValueError(f"L5 runs on cuda (or its twin on cpu), not "
+                         f"{lu.device}")
+    if not b.is_floating_point():
+        raise TypeError(f"L5 takes a floating b, got {b.dtype}")
+    if b.dtype != lu.dtype:
+        wide = torch.promote_types(lu.dtype, b.dtype)
+        x, ok = _lu_solve_batched(lu.to(wide), perm, b.to(wide))
+        return x.to(b.dtype), ok
+    if lu.dtype in (torch.bfloat16, torch.float16):
+        x, ok = _lu_solve_batched(lu.float(), perm, b.float())
+        return x.to(lu.dtype), ok
+    if lu.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"L5 takes float32 or float64, got {lu.dtype}")
+    lu, b = lu.contiguous(), b.contiguous()
+    perm = perm.long().contiguous()
+    bsz, n, _ = lu.shape
+    k = b.shape[-1]
+    dev = lu.device
+    kc = lu_solve_geometry(bsz, k, sm_count(_device_index(lu)))
+    lib = cuda_build.load()
+    x = torch.empty_like(b)
+    flags = torch.empty((bsz, -(-k // kc)), dtype=torch.int32, device=dev)
+    err = lib.matinv_lu_solve(
+        lu.data_ptr(), perm.data_ptr(), b.data_ptr(), x.data_ptr(),
+        flags.data_ptr(), bsz, n, k, kc, int(lu.dtype == torch.float64),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "L5 lu_solve")
+    if not cuda_build.capturing():   # a graph's record is no launch
+        _lu_solve_batched.launches += 1
+    return x, (flags != 0).all(dim=1)
+
+
+_lu_solve_batched.launches = 0
+
+
+@compiled
 def lu_solve(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor):
     """Solve with a prior :func:`lu_factor`; ``b`` is (..., n, k).
     Returns ``(x, ok)``."""
@@ -151,6 +277,7 @@ def lu_solve(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor):
     return x.reshape(b.shape), ok.reshape(lu.shape[:-2])
 
 
+@compiled
 def lu_inverse(a: torch.Tensor):
     """getri (the spec): the inverse by LU and n simultaneous solves;
     returns ``(inverse, ok)``."""
@@ -160,6 +287,7 @@ def lu_inverse(a: torch.Tensor):
     return inv, ok_f & ok_s
 
 
+@compiled
 def lu_solve_matrix(a: torch.Tensor, b: torch.Tensor, *, pivot: bool = True):
     """One-shot solve A x = b (the spec); returns ``(x, ok)``."""
     lu, perm, ok_f = lu_factor(a, pivot=pivot)
@@ -248,12 +376,14 @@ small_lu.launches = 0
 # --------------------------------------------------------------------------
 
 
-def _lu_panel(strip: torch.Tensor, used: torch.Tensor, kb: int, *, b: int,
-              pivot: bool):
+def lu_panel_twin(strip: torch.Tensor, used: torch.Tensor, kb: int, *,
+                  b: int, pivot: bool):
     """Factor an (m, b) panel with no-swap partial pivoting (the full-
     precision first max over unused rows), multipliers stored in place
-    below the logical diagonal. ``used`` (m,) int32 is read only. Returns
-    ``(w, pivrows, used, ok)`` with the updated mask."""
+    below the logical diagonal: L3's plain twin. ``used`` (m,) int32 is
+    read only. Returns ``(w, pivrows, used, ok)`` with the updated mask.
+    ``calls`` counts its calls."""
+    lu_panel_twin.calls += 1
     dev = strip.device
     m = strip.shape[0]
     rows = torch.arange(m, device=dev)
@@ -281,6 +411,67 @@ def _lu_panel(strip: torch.Tensor, used: torch.Tensor, kb: int, *, b: int,
         w[:, r + 1:] -= f[:, None] * w[p, r + 1:]
         w[:, r] = torch.where(eliminable, f, w[:, r])
     return w, pivrows, used, ok
+
+
+lu_panel_twin.calls = 0
+
+
+def _lu_panel(strip: torch.Tensor, used: torch.Tensor, kb: int, *, b: int,
+              pivot: bool):
+    """L3 (``csrc/lu_panel.cu``): the blocked getrf's panel for every dtype
+    but fp32's kernel route; ``(w, pivrows, used, ok)`` of
+    :func:`lu_panel_twin` bit for bit.
+
+    A CPU tensor runs the twin. A CUDA tensor (fp64 or fp32, unit column
+    stride) launches L3, one persistent grid on L2's geometry
+    (``blocked.logical_geometry``); bf16 and fp16 are computed in fp32 and
+    w returned in the input's dtype."""
+    m = strip.shape[0]
+    if strip.ndim != 2 or strip.shape[1] != b or used.shape != (m,):
+        raise ValueError(f"L3 takes an (m, {b}) strip and an (m,) mask, got "
+                         f"{tuple(strip.shape)} and {tuple(used.shape)}")
+    if strip.device.type == "cpu":
+        return lu_panel_twin(strip, used, kb, b=b, pivot=pivot)
+    if strip.device.type != "cuda":
+        raise ValueError(f"L3 runs on cuda (or its twin on cpu), not "
+                         f"{strip.device}")
+    if strip.dtype in (torch.bfloat16, torch.float16):
+        w, pivrows, used_out, ok = _lu_panel(strip.float(), used, kb, b=b,
+                                             pivot=pivot)
+        return w.to(strip.dtype), pivrows, used_out, ok
+    if strip.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"L3 takes float32 or float64, got {strip.dtype}")
+    if strip.stride(1) != 1:
+        strip = strip.contiguous()
+    dev = strip.device
+    geo = logical_geometry(m, b, strip.element_size(),
+                           sm_count(_device_index(strip)))
+    lib = cuda_build.load()
+    used32 = used.to(torch.int32).contiguous()
+    w = torch.empty((m, b), dtype=strip.dtype, device=dev)
+    used_out = torch.empty(m, dtype=torch.int32, device=dev)
+    pivrows = torch.empty(b, dtype=torch.int32, device=dev)
+    ok = torch.empty(1, dtype=torch.int32, device=dev)
+    work = (None if geo.rows_shared else
+            torch.empty((m, b), dtype=strip.dtype, device=dev))
+    props = torch.empty(grid_props_bytes(geo.ctas, b, strip.element_size()),
+                        dtype=torch.uint8, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = lib.matinv_lu_panel(
+        strip.data_ptr(), strip.stride(0), used32.data_ptr(), w.data_ptr(),
+        used_out.data_ptr(), pivrows.data_ptr(), ok.data_ptr(),
+        None if work is None else work.data_ptr(),
+        props.data_ptr(), bar.data_ptr(), m, b, int(kb),
+        int(strip.dtype == torch.float64), int(pivot), geo.ctas,
+        int(geo.rows_shared), geo.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "L3 lu_panel")
+    if not cuda_build.capturing():   # a graph's record is no launch
+        _lu_panel.launches += 1
+    return w, pivrows, used_out.to(used.dtype), ok[0] != 0
+
+
+_lu_panel.launches = 0
 
 
 def _panel_from_kernels(pstrip, used, kb, *, b, pivot, search_bf16):
@@ -436,8 +627,8 @@ def lu_factor_blocked(a: torch.Tensor, *, pivot: bool = True,
 
     fp32 panels take K3 and K5, two-level grouped (``MATINV_LU_GROUP``,
     read per call, overrides the panels per group; 1 is the flat per-panel
-    loop); other dtypes run the plain panel loop :func:`_lu_panel`. A
-    batch loops one matrix at a time."""
+    loop); other dtypes run the panel loop of kernel L3 (:func:`_lu_panel`).
+    A batch loops one matrix at a time."""
     _check_square(a)
     n = a.shape[-1]
     b, use_kernels, search_bf16 = _select_block_params(
@@ -816,6 +1007,7 @@ def cond_estimate(a: torch.Tensor, inv: torch.Tensor, *, iters: int = 8,
     return spectral_norm(a) * spectral_norm(inv)
 
 
+@compiled
 def slogdet(a: torch.Tensor):
     """Sign and log-absolute-determinant from the LU factorization
     (``numpy.linalg.slogdet``'s contract); returns ``(sign, logabsdet,

@@ -205,7 +205,10 @@ KERNEL_NAMES = {"K1": ("fused_gj_regs_kernel", "fused_gj_cluster_kernel"),
                 "K7": ("matmul_f32_kernel", "matmul_bf16_kernel"),
                 "L1": ("gauss_jordan_cluster_kernel",
                        "gauss_jordan_grid_kernel"),
-                "L2": ("logical_panel_kernel",)}
+                "L2": ("logical_panel_kernel",),
+                "L3": ("lu_panel_kernel",),
+                "L4": ("lu_factor_cluster_kernel", "lu_factor_grid_kernel"),
+                "L5": ("lu_solve_kernel",)}
 
 
 def kernel_launches(rows) -> dict:

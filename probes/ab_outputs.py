@@ -34,7 +34,14 @@ one card. It prints and writes to ``--out`` a JSON record:
   4096^2 hollow matrix of seed 1 (the f32-search tier),
   ``matrix_inversion_no_pivots`` on the 1024^2 hollow matrix of seed 5
   made diagonally dominant (the logical tier), and ``inverse`` on a
-  (64, 256^2) FP64 batch of hollow matrices of seeds 0 .. 63 (spec).
+  (64, 256^2) FP64 batch of hollow matrices of seeds 0 .. 63 (spec); the
+  LU routes of the twelfth slice: FP64 ``inverse(method="lu")`` and
+  ``solve`` (16 right-hand sides) on the FP64 4096^2 matrix above,
+  ``solve(refine_iters=2)`` on the fp32 one, ``lu_inverse_refined`` (two
+  float64 steps) on the FP64 one, ``inverse(method="lu")`` and
+  ``slogdet`` on a (64, 128^2) fp32 batch of hollow matrices of seeds
+  0 .. 63, ``slogdet`` on the FP64 1024^2 hollow matrix of seed 7 over
+  50, and ``lu_factor`` on one fp64 200^2 matrix.
 - ``ms``: each kernel at its main path's shape (``chip_smoke.py`` phase
   7's) by CUDA events, mean of many calls after a warm-up, and its own
   kernel's device time per call from ``torch.profiler`` (``*_device``;
@@ -44,6 +51,13 @@ one card. It prints and writes to ``--out`` a JSON record:
   and refined, of LU getri and of Newton-Schulz at 4096^2, and each of
   those calls by CUDA events (mean of three, after a warm-up); the same
   for the three FP64 calls above (through ``inverse`` on card tensors).
+- ``routes``: the LU routes above (FP64 getri and ``solve`` 4096^2,
+  ``solve(refine_iters=2)``, ``lu_inverse_refined`` 4096^2, the
+  (64, 128^2) batch's ``inverse(method="lu")`` and ``slogdet``): the first
+  call's ms by the host clock (the graph cache emptied before it),
+  then eager (``graphs.disabled()``) and as called (replayed where the
+  tree compiles the route) by CUDA events and device time, with the
+  idle share 1 - device / events.
 
 ``--compare`` prints, for each output, whether the two records hash it
 alike, else whether its values agree up to the sign of zeros (and how
@@ -55,10 +69,12 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import importlib.util
 import json
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -108,12 +124,43 @@ def _compare_bits(first: dict, second: dict) -> str:
     return f"identical up to the sign of {signs} zeros"
 
 
+def route_times(routes, prof) -> dict:
+    """First call, eager and as-called ms of each ``(label, call, iters)``
+    (see the module docstring)."""
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
+    out = {}
+    for label, fn, iters in routes:
+        graphs.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        row = {"first_call_ms": (time.perf_counter() - t0) * 1e3}
+        for leg in ("eager", "called"):
+            with graphs.disabled() if leg == "eager" else _nothing():
+                ev = prof.events_ms(fn, iters)
+                dv = prof.device_ms(fn, iters)
+            row[f"{leg}_events_ms"] = ev
+            row[f"{leg}_device_ms"] = dv
+            row[f"{leg}_idle"] = None if dv is None else 1 - dv / ev
+        out[label] = row
+    graphs.clear()
+    return out
+
+
+@contextlib.contextmanager
+def _nothing():
+    yield
+
+
 def measure() -> dict:
     from gpu_matrix_inversion_tpu_torch import (inverse,
                                                 matrix_inversion_fp64,
-                                                matrix_inversion_no_pivots)
+                                                matrix_inversion_no_pivots,
+                                                slogdet, solve)
     from gpu_matrix_inversion_tpu_torch.ops import (blocked, fused, lockstep,
                                                     lu, matmul)
+    from gpu_matrix_inversion_tpu_torch.ops.refine import lu_inverse_refined
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
         hollow_random_matrix, well_conditioned_matrix)
     prof = _profiling()
@@ -171,6 +218,13 @@ def measure() -> dict:
         hollow_random_matrix(256, seed=s, dtype=np.float64)
         for s in range(64)])).to(dev)
     x4k64, dom1k_dev = (torch.from_numpy(a).to(dev) for a in (a4k64, dom1k))
+    rhs16 = randn(4096, 16)
+    rhs16_64 = rhs16.double()
+    b128 = torch.from_numpy(np.stack([hollow_random_matrix(128, seed=s)
+                                      for s in range(64)])).to(dev)
+    a1k64 = torch.from_numpy(hollow_random_matrix(
+        1024, seed=7, dtype=np.float64) / 50).to(dev)
+    x200 = torch.from_numpy(rng.standard_normal((1, 200, 200))).to(dev)
 
     def k4_batch(x):
         inv, ok = blocked.invert_small(x, pivot=True)
@@ -211,6 +265,20 @@ def measure() -> dict:
     bits["no_pivot_fp64_1024"] = _fingerprint(torch.from_numpy(
         matrix_inversion_no_pivots(dom1k.reshape(-1), 1024, device="cuda")))
     bits["spec_fp64_64x256"] = _fingerprint(inverse(batch64))
+    lu_routes = {
+        "lu_fp64_getri_4096": lambda: inverse(x4k64, method="lu"),
+        "solve_fp64_4096x16": lambda: solve(x4k64, rhs16_64, method="lu"),
+        "solve_refine2_4096x16": lambda: solve(x4k, rhs16, method="lu",
+                                               refine_iters=2),
+        "lu_inverse_refined_4096": lambda: lu_inverse_refined(
+            x4k64, iters=2, residual_dtype=torch.float64),
+        "lu_inverse_64x128": lambda: inverse(b128, method="lu"),
+        "slogdet_64x128": lambda: slogdet(b128),
+        "slogdet_fp64_1024": lambda: slogdet(a1k64),
+        "lu_factor_fp64_200": lambda: lu.lu_factor(x200),
+    }
+    for key, fn in lu_routes.items():
+        bits[key] = _fingerprint(fn())
 
     # (label, call, calls to time, the kernel's name in the profiler)
     xa16, xb16 = (g.bfloat16() for g in big)
@@ -267,10 +335,16 @@ def measure() -> dict:
             ("spec_fp64_64x256", lambda: inverse(batch64))):
         ms[label] = prof.events_ms(fn, 3)
         ms[f"{label}_device"] = prof.device_ms(fn)
+    routes = route_times(
+        [(key, lu_routes[key], iters) for key, iters in (
+            ("lu_fp64_getri_4096", 1), ("solve_fp64_4096x16", 1),
+            ("solve_refine2_4096x16", 1), ("lu_inverse_refined_4096", 1),
+            ("lu_inverse_64x128", 3), ("slogdet_64x128", 3))], prof)
     return {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip(), "bits": bits, "ms": ms}
+        check=True).stdout.strip(), "bits": bits, "ms": ms,
+        "routes": routes}
 
 
 def main() -> None:
@@ -284,6 +358,10 @@ def main() -> None:
             print(f"{key}: {_compare_bits(rec, second['bits'][key])}")
         for key, val in first["ms"].items():
             print(f"{key}: {val} ms, then {second['ms'].get(key)} ms")
+        for key, row in first.get("routes", {}).items():
+            other = second.get("routes", {}).get(key, {})
+            print(f"{key}: " + "; ".join(
+                f"{k} {v} then {other.get(k)}" for k, v in row.items()))
         return
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")

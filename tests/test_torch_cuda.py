@@ -17,6 +17,10 @@ L1 and L2 (the FP64 routes' loops): L1 bit for bit against its twin up to
 the sign of a zero, ok equal; L2's pivot rows and ok identical; each FP64
 route launches them and never runs the plain loops.
 
+L3, L4 and L5 (the LU module's loops): bit for bit against their twins,
+NaN and infinite inputs included (NaN where the twin has NaN), ok equal;
+each LU route launches them and never runs the plain loops.
+
 Tolerances as in ``chip_smoke.py``: pivot sequences identical, ok equal,
 values within 1e-4 of max|twin|; K1, K4 and K5 also elementwise against
 the twin (``_hold_to_twin``), K1's cluster branch byte-identical across
@@ -882,7 +886,8 @@ def _wrappers() -> dict:
             "K5": lu.small_lu, "K6": lockstep.lockstep_factor,
             "K7": matmul.tiled_matmul,
             "L1": gauss_jordan._gauss_jordan_aug,
-            "L2": blocked._panel_pivots_logical}
+            "L2": blocked._panel_pivots_logical, "L3": lu._lu_panel,
+            "L4": lu._lu_factor_batched, "L5": lu._lu_solve_batched}
 
 
 def _counts() -> dict:
@@ -947,6 +952,11 @@ def _route_calls(cuda):
     wc = torch.from_numpy(well_conditioned_matrix(512, seed=9)).to(cuda)
     rhs = torch.from_numpy(rng.standard_normal((1024, 4)).astype(
         np.float32)).to(cuda)
+    small = torch.from_numpy(np.stack([
+        hollow_random_matrix(128, seed=30 + i) for i in range(16)])).to(cuda)
+    small_rhs = torch.from_numpy(rng.standard_normal((16, 128, 3)).astype(
+        np.float32)).to(cuda)
+    lu_s, perm_s, _ = lu._lu_factor_batched(small, pivot=True)
     return {
         "blocked": ("blocked_inverse", lambda: inverse(h)),
         "bf16 search": ("blocked_inverse",
@@ -963,6 +973,13 @@ def _route_calls(cuda):
         "Newton-Schulz": ("newton_schulz_inverse",
                           lambda: inverse(wc, method="ns")),
         "spec": ("gauss_jordan_inverse", lambda: inverse(small64)),
+        "LU spec getrf": ("lu_factor", lambda: lu.lu_factor(small)),
+        "LU spec getrs": ("lu_solve",
+                          lambda: lu.lu_solve(lu_s, perm_s, small_rhs)),
+        "LU spec getri": ("lu_inverse", lambda: lu.lu_inverse(small)),
+        "LU spec solve": ("lu_solve_matrix",
+                          lambda: lu.lu_solve_matrix(small, small_rhs)),
+        "slogdet FP64 (L3 panels)": ("slogdet", lambda: lu.slogdet(h64)),
     }
 
 
@@ -979,7 +996,8 @@ def _assert_bits(got, want) -> None:
 @pytest.mark.parametrize("route", [
     "blocked", "bf16 search", "FP64 tier", "no-pivot FP64",
     "per-matrix batch", "LU getri", "LU solve", "potri", "Cholesky solve",
-    "Newton-Schulz", "spec"])
+    "Newton-Schulz", "spec", "LU spec getrf", "LU spec getrs",
+    "LU spec getri", "LU spec solve", "slogdet FP64 (L3 panels)"])
 def test_replay_equals_eager(graph_cache, cuda, route):
     """Eager (graphs.disabled()), the first call (the capture) and a
     replay give the same bits, outputs and ok; stats() shows one capture,
@@ -1273,3 +1291,225 @@ def test_fp64_routes_launch_the_loops(cuda):
         for i in range(a.shape[0] if a.ndim == 3 else 1):
             ai, xi = (a[i], x[i]) if a.ndim == 3 else (a, x)
             assert relative_residual(ai, xi) <= 1e-12
+
+
+# --------------------------------------------------------------------------
+# L3, L4 and L5: the LU module's loops
+# --------------------------------------------------------------------------
+
+
+def _same_bits(x, y) -> bool:
+    """Bit for bit, except that NaN matches NaN whatever its payload."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if not x.is_floating_point():
+        return torch.equal(x, y)
+    nan = torch.isnan(x)
+    if not torch.equal(nan, torch.isnan(y)):
+        return False
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    return torch.equal(x.view(ints)[~nan], y.view(ints)[~nan])
+
+
+def _lu_members(rng, bsz: int, n: int, kind: str) -> np.ndarray:
+    """normal; dominant (no pivoting needed); integers in [-3, 3] (exact
+    ties); special: a regular member, a singular one (a zero row), one
+    holding a NaN and one holding an infinity."""
+    if kind == "integers":
+        return rng.integers(-3, 4, (bsz, n, n)).astype(np.float64)
+    a = rng.standard_normal((bsz, n, n))
+    if kind == "dominant":
+        a += n * np.eye(n)
+    if kind == "special":
+        a[1, 3] = 0.0
+        a[2, n // 2, n // 3] = np.nan
+        a[3, n // 3, n // 2] = np.inf
+    return a
+
+
+@pytest.mark.parametrize("bsz, n, dtype, pivot, kind", [
+    (64, 128, torch.float32, True, "normal"),     # the small-n LU batch
+    (1, 200, torch.float64, True, "normal"),
+    (1, 130, torch.float32, False, "dominant"),
+    (4, 256, torch.float64, True, "integers"),    # exact ties
+    (4, 100, torch.float64, True, "special"),
+    (1, 640, torch.float32, True, "normal"),      # the grid branch
+    (4, 600, torch.float64, True, "special"),
+    (1, 2000, torch.float64, False, "dominant"),  # rows in a workspace
+])
+def test_l4_matches_twin(cuda, bsz, n, dtype, pivot, kind):
+    """L4 (csrc/gauss_jordan.cu, LU mode) against lu_factor_twin on the
+    card: the factor's bits, perm and ok identical."""
+    a = _lu_members(np.random.default_rng(n + bsz), bsz, n, kind)
+    x = torch.from_numpy(a).to(dtype).to(cuda)
+    got = lu._lu_factor_batched(x, pivot=pivot)
+    want = lu.lu_factor_twin(x, pivot=pivot)
+    assert _same_bits(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    if kind == "special":
+        assert got[2].tolist() == [True, False, False, False]
+
+
+@pytest.mark.parametrize("bsz, n, k, dtype", [
+    (1, 4096, 16, torch.float32),     # solve(..., refine_iters=2)
+    (64, 128, 128, torch.float32),    # inverse(method="lu") on a batch
+    (1, 200, 1, torch.float64),       # a vector right-hand side
+    (2, 130, 33, torch.float64),      # ragged blocks and column tiles
+    (4, 100, 5, torch.float64),       # singular, NaN and inf members
+])
+def test_l5_matches_twin(cuda, bsz, n, k, dtype):
+    """L5 (csrc/lu_solve.cu) against lu_solve_twin on the card: x's bits
+    and ok identical, on factors from L4."""
+    rng = np.random.default_rng(n + k)
+    kind = "special" if bsz == 4 else "normal"
+    x = torch.from_numpy(_lu_members(rng, bsz, n, kind)).to(dtype).to(cuda)
+    fac, perm, _ = lu._lu_factor_batched(x, pivot=True)
+    rhs = torch.from_numpy(rng.standard_normal((bsz, n, k))).to(dtype).to(
+        cuda)
+    got = lu._lu_solve_batched(fac, perm, rhs)
+    want = lu.lu_solve_twin(fac, perm, rhs)
+    assert _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kind == "special":
+        assert got[1].tolist() == [True, False, False, False]
+
+
+@pytest.mark.parametrize("m, b, dtype, pivot, mask", [
+    (4096, 128, torch.float64, True, "empty"),    # FP64 getrf 4096^2
+    (4096, 128, torch.float64, True, "prior"),
+    (1024, 128, torch.float64, False, "later"),   # no pivoting
+    (520, 64, torch.float64, True, "prior"),
+    (16384, 256, torch.float64, True, "prior"),   # rows in a workspace
+    (65600, 32, torch.float32, True, "empty"),
+    (1024, 128, torch.float64, True, "inf"),
+])
+def test_l3_matches_twin(cuda, m, b, dtype, pivot, mask):
+    """L3 (csrc/lu_panel.cu) against lu_panel_twin on the card: the
+    panel's bits, pivot rows, mask and ok identical."""
+    rng = np.random.default_rng(m + b)
+    a = rng.standard_normal((m, b))
+    used = torch.zeros(m, dtype=torch.int32, device=cuda)
+    kb = 0
+    if mask == "prior":
+        used[torch.from_numpy(rng.permutation(m)[:m // 3]).to(cuda)] = 1
+    elif mask == "later":
+        a[:, :] += 4 * b * (np.arange(m)[:, None] == np.arange(b) + m // 2)
+        used[:m // 2] = 1
+        kb = m // 2
+    elif mask == "inf":
+        a[int(np.abs(a[:, 0]).argmax()), 5] = np.inf
+    strip = torch.from_numpy(a).to(dtype).to(cuda)
+    got = lu._lu_panel(strip, used, kb, b=b, pivot=pivot)
+    want = lu.lu_panel_twin(strip, used, kb, b=b, pivot=pivot)
+    assert _same_bits(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert bool(got[3]) == bool(want[3])
+
+
+def test_lu_routes_launch_the_loops(cuda):
+    """On the card each LU route runs L3, L4 and L5 and never their plain
+    loops: FP64 getri 1024^2 L3 once a panel (8); solve with 2 refinement
+    steps at 1024^2 fp32 K3 and K5, then L5 once a step; a (16, 128^2)
+    batch's getri L4 and L5 once each; slogdet on it L4 once;
+    lu_inverse_refined at 256^2 L4 and L5 once each. Each meets its gate."""
+    from gpu_matrix_inversion_tpu_torch import inverse, slogdet, solve
+    from gpu_matrix_inversion_tpu_torch.ops.refine import lu_inverse_refined
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    from gpu_matrix_inversion_tpu_torch.utils.residual import (
+        relative_residual)
+    a64 = torch.from_numpy(hollow_random_matrix(1024, seed=12,
+                                                dtype=np.float64)).to(cuda)
+    a32 = a64.float()
+    batch = torch.from_numpy(np.stack([hollow_random_matrix(128, seed=s)
+                                       for s in range(16)])).to(cuda)
+    rhs = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1024, 4)).astype(np.float32)).to(cuda)
+    twins = (lu.lu_panel_twin, lu.lu_factor_twin, lu.lu_solve_twin)
+    for t in twins:
+        t.calls = 0
+    cases = (
+        (lambda: inverse(a64, method="lu"), {"L3": 8}),
+        (lambda: solve(a32, rhs, method="lu", refine_iters=2),
+         {"K3": 8, "K5": 8, "L5": 2}),
+        (lambda: inverse(batch, method="lu"), {"L4": 1, "L5": 1}),
+        (lambda: slogdet(batch), {"L4": 1}),
+        (lambda: lu_inverse_refined(a64[:256, :256], iters=2,
+                                    residual_dtype=torch.float64),
+         {"L4": 1, "L5": 1}),
+    )
+    outs = []
+    for call, want in cases:
+        before = _counts()
+        outs.append(call())
+        torch.cuda.synchronize()
+        assert _grown(before) == want
+    assert all(t.calls == 0 for t in twins)
+    inv64, ok = outs[0]
+    assert bool(ok) and relative_residual(
+        a64.cpu().numpy(), inv64.cpu().numpy()) < 1e-12
+    x, ok = outs[1]
+    berr = float(torch.linalg.norm(a32.double() @ x.double() - rhs.double())
+                 / (torch.linalg.norm(a32.double())
+                    * torch.linalg.norm(x.double())))
+    assert bool(ok) and berr < 1e-5
+    inv_b, ok = outs[2]
+    assert bool(ok.all())
+    sign, logabs, ok = outs[3]
+    want_sign, want_log = np.linalg.slogdet(batch.double().cpu().numpy())
+    assert bool(ok.all()) and np.array_equal(sign.cpu().numpy(), want_sign)
+    assert np.allclose(logabs.cpu().numpy(), want_log, rtol=1e-4)
+    inv_r, ok = outs[4]
+    assert bool(ok) and relative_residual(
+        a64[:256, :256].cpu().numpy(), inv_r.cpu().numpy()) < 1e-10
+
+
+def test_lu_loops_take_bf16_in_fp32(cuda):
+    """bf16 card tensors (ROADMAP Queue 3): L3, L4 and L5 compute in fp32
+    and round their value outputs once to bf16, pivots, perm, mask and ok
+    those of the fp32 run; the twins (the CPU's path) compute in bf16."""
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.standard_normal((2, 96, 96))).to(
+        torch.bfloat16).to(cuda)
+    got = lu._lu_factor_batched(x, pivot=True)
+    want = lu._lu_factor_batched(x.float(), pivot=True)
+    assert got[0].dtype == torch.bfloat16
+    assert _same_bits(got[0], want[0].to(torch.bfloat16))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    rhs = torch.from_numpy(rng.standard_normal((2, 96, 3))).to(
+        torch.bfloat16).to(cuda)
+    x_b, ok_b = lu._lu_solve_batched(got[0], got[1], rhs)
+    x_f, ok_f = lu._lu_solve_batched(got[0].float(), got[1], rhs.float())
+    assert x_b.dtype == torch.bfloat16
+    assert _same_bits(x_b, x_f.to(torch.bfloat16)) and torch.equal(ok_b, ok_f)
+    strip = x[0, :, :32].contiguous()
+    used = torch.zeros(96, dtype=torch.int32, device=cuda)
+    p_b = lu._lu_panel(strip, used, 0, b=32, pivot=True)
+    p_f = lu._lu_panel(strip.float(), used, 0, b=32, pivot=True)
+    assert p_b[0].dtype == torch.bfloat16
+    assert _same_bits(p_b[0], p_f[0].to(torch.bfloat16))
+    assert all(torch.equal(a, b) for a, b in zip(p_b[1:3], p_f[1:3]))
+    assert bool(p_b[3]) == bool(p_f[3])
+
+
+@pytest.mark.parametrize("lu_dtype, b_dtype", [
+    (torch.float32, torch.float64), (torch.float64, torch.float32)])
+def test_l5_takes_b_in_another_dtype(cuda, lu_dtype, b_dtype):
+    """b in another dtype than the factor's (ROADMAP Queue 3): L5 solves in
+    the wider of the two and returns x in b's dtype. Where b is the wider
+    that is the twin's result bit for bit; where b is the narrower it is
+    the wide solve rounded once (the twin rounds at every step), ok equal
+    to the twin's."""
+    rng = np.random.default_rng(17)
+    a = torch.from_numpy(rng.standard_normal((2, 96, 96))).to(cuda)
+    fac, perm, _ = lu._lu_factor_batched(a, pivot=True)
+    fac = fac.to(lu_dtype)
+    b = torch.from_numpy(rng.standard_normal((2, 96, 5))).to(b_dtype).to(
+        cuda)
+    x, ok = lu._lu_solve_batched(fac, perm, b)
+    wide = torch.promote_types(lu_dtype, b_dtype)
+    x_wide, _ = lu._lu_solve_batched(fac.to(wide), perm, b.to(wide))
+    want, want_ok = lu.lu_solve_twin(fac.cpu(), perm.cpu(), b.cpu())
+    assert x.dtype == b_dtype and torch.equal(ok.cpu(), want_ok)
+    assert _same_bits(x, x_wide.to(b_dtype))
+    if b_dtype == wide:
+        assert _same_bits(x.cpu(), want)

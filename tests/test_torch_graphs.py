@@ -32,7 +32,8 @@ PKG = REPO / "gpu_matrix_inversion_tpu_torch"
 # The port's counterparts of the JAX package's jit sites.
 COMPILED = [blocked.blocked_inverse, lockstep.lockstep_inverse,
             lu.lu_factor_blocked, lu.lu_solve_fast, lu.lu_inverse_fast,
-            lu.invert_triangular, cholesky.cholesky_factor,
+            lu.invert_triangular, lu.lu_factor, lu.lu_solve, lu.lu_inverse,
+            lu.lu_solve_matrix, lu.slogdet, cholesky.cholesky_factor,
             cholesky.cholesky_solve, cholesky.cholesky_inverse,
             refine.newton_schulz_refine, refine.refine_solve,
             newton_schulz.newton_schulz_inverse,
@@ -252,7 +253,7 @@ def test_counted_wrappers_cover_every_launch_counter():
             assert [line for _, line in adds] == [
                 "if not cuda_build.capturing():   # a graph's record is no "
                 "launch"], name
-    assert wrappers == 9
+    assert wrappers == 12
     for path in [REPO / "chip_smoke.py"] + sorted(PKG.rglob("*.py")):
         assert not re.search(r"\.launches \+= (?!1\b)", path.read_text()), (
             path)
