@@ -30,6 +30,7 @@ import torch
 
 from gpu_matrix_inversion_tpu_torch.models import solver
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
+from gpu_matrix_inversion_tpu_torch.utils.profiling import span
 from gpu_matrix_inversion_tpu_torch.utils.res import Res, PhaseTimer
 from gpu_matrix_inversion_tpu_torch.utils.residual import (
     reference_error_metric)
@@ -49,15 +50,26 @@ def _sync(device) -> None:
 
 def _invert_flat(flat, order: int, dtype, *, pivot: bool, device,
                  method: str = "auto") -> np.ndarray:
-    """Shared flat-vector inversion core; returns flat inverse or empty."""
-    mat = validate_flat_matrix(flat, order)
+    """Shared flat-vector inversion core; returns flat inverse or empty.
+    Its steps are profiler spans (``utils/profiling.span``): ``api.validate``,
+    ``api.stage`` (the host array and its copy to ``device``), then
+    ``solver.inverse``'s own, ``api.ok`` (the host's first wait on the
+    device), ``api.readback`` and ``api.convert``."""
+    with span("api.validate"):
+        mat = validate_flat_matrix(flat, order)
     if mat is None:
         return np.empty(0, dtype=dtype)
-    a = _to_device(mat, dtype, device)
+    with span("api.stage"):
+        a = _to_device(mat, dtype, device)
     inv, ok = solver.inverse(a, method=method, pivot=pivot)
-    if not bool(ok):
+    with span("api.ok"):
+        ok = bool(ok)
+    if not ok:
         return np.empty(0, dtype=dtype)
-    return inv.cpu().numpy().reshape(-1).astype(dtype)
+    with span("api.readback"):
+        inv = inv.cpu()
+    with span("api.convert"):
+        return inv.numpy().reshape(-1).astype(dtype)
 
 
 def matrix_inv_32(flat, order: int, *, device="cuda") -> np.ndarray:

@@ -54,6 +54,7 @@ from gpu_matrix_inversion_tpu_torch.parallel.mesh import (world_serves,
                                                           world_size)
 from gpu_matrix_inversion_tpu_torch.utils.config import InversionConfig
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
+from gpu_matrix_inversion_tpu_torch.utils.profiling import span
 
 METHODS = ("auto", "spec", "fused", "blocked", "lu", "cholesky", "sharded",
            "ns")
@@ -106,8 +107,16 @@ def inverse(a: torch.Tensor, *, method: str = "auto", pivot: bool = True,
     ``precision``/``search_bf16`` apply to the blocked and sharded routes
     (the batched sharded route takes ``precision`` only); the others
     ignore them. An empty input ((0, n, n), (k, 0, 0), (0, 0)) raises
-    ``ValueError``.
+    ``ValueError``. The whole call is the profiler span
+    ``solver.inverse`` (``utils/profiling.span``).
     """
+    with span("solver.inverse"):
+        return _inverse(a, method=method, pivot=pivot, block_size=block_size,
+                        mesh=mesh, precision=precision,
+                        search_bf16=search_bf16)
+
+
+def _inverse(a, *, method, pivot, block_size, mesh, precision, search_bf16):
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     if not isinstance(a, torch.Tensor):

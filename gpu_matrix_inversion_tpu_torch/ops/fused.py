@@ -35,6 +35,7 @@ import dataclasses
 import torch
 
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
+from gpu_matrix_inversion_tpu_torch.utils.profiling import span
 
 # Largest n the fused route takes. Kept equal to the JAX package's
 # FUSED_MAX_N (a TPU VMEM bound) so both packages route every input alike.
@@ -299,19 +300,25 @@ def blocks_per_sm() -> int:
 
 def _fused_batched(a: torch.Tensor, *, pivot: bool):
     """Pad ``(B, n, n)`` to m = round_up(n, 128), run K1, restore row order
-    and un-pad (fused.py:262-309)."""
+    and un-pad (fused.py:262-309); the profiler spans ``fused.k1`` and
+    ``fused.gather`` (``utils/profiling.span``)."""
     bsz, n, _ = a.shape
     m = max(_round_up(n, 128), 128)
-    if m != n:
-        # Pad to blockdiag(A, I): the inverse is blockdiag(inv(A), I), and
-        # padded rows/cols never win a pivot against a nonsingular A.
-        pad = torch.eye(m, dtype=a.dtype, device=a.device).repeat(bsz, 1, 1)
-        pad[:, :n, :n] = a
-        a = pad
-    inv, pos, ok = gj_kernel(a.contiguous(), pivot=pivot)
-    # Undo the logical permutation: inverse row g is at physical row pos[g].
-    inv = torch.gather(inv, 1, pos.long()[:, :, None].expand(bsz, m, m))
-    return inv[:, :n, :n], ok
+    with span("fused.k1"):
+        if m != n:
+            # Pad to blockdiag(A, I): the inverse is blockdiag(inv(A), I),
+            # and padded rows/cols never win a pivot against a nonsingular
+            # A.
+            pad = torch.eye(m, dtype=a.dtype,
+                            device=a.device).repeat(bsz, 1, 1)
+            pad[:, :n, :n] = a
+            a = pad
+        inv, pos, ok = gj_kernel(a.contiguous(), pivot=pivot)
+    with span("fused.gather"):
+        # Undo the logical permutation: inverse row g is at physical row
+        # pos[g].
+        inv = torch.gather(inv, 1, pos.long()[:, :, None].expand(bsz, m, m))
+        return inv[:, :n, :n], ok
 
 
 def fused_inverse(a: torch.Tensor, *, pivot: bool = True):

@@ -46,7 +46,11 @@ replay launches is read from the graph itself (:func:`kernel_nodes`) and
 what it ran from the profiler's kernel records
 (``utils/profiling.device_kernels``). :func:`stats` gives the captures
 and replays of each function, :func:`first_calls` what each first call
-spent.
+spent. While a profiler session records, a call on a CUDA tensor outside
+a capture opens the ranges ``graphs.key`` (its signature and the gate),
+then, served from the cache, ``graphs.copy_in`` (a replay's input
+copies), ``graphs.replay`` and ``graphs.copy_out`` (the outputs' clones)
+(``utils/profiling.span``).
 
 The in-memory cache is the whole of it: a CUDA graph cannot outlive its
 process, so nothing persists across processes (``utils/config.
@@ -68,6 +72,8 @@ import threading
 import time
 
 import torch
+
+from gpu_matrix_inversion_tpu_torch.utils.profiling import span
 
 _PACKAGE = "gpu_matrix_inversion_tpu_torch"
 
@@ -239,13 +245,16 @@ class _Cache:
                 self.entries[sig] = entry
             else:
                 self.entries.move_to_end(sig)
-                for name, t in tensors.items():
-                    entry.inputs[name].copy_(t)
+                with span("graphs.copy_in"):
+                    for name, t in tensors.items():
+                        entry.inputs[name].copy_(t)
             t0 = time.perf_counter()
-            entry.graph.replay()
+            with span("graphs.replay"):
+                entry.graph.replay()
             self._count(sig.fn, "replays")
-            out = _unflatten(entry.spec,
-                             iter([t.clone() for t in entry.outputs]))
+            with span("graphs.copy_out"):
+                out = _unflatten(entry.spec,
+                                 iter([t.clone() for t in entry.outputs]))
             first = self.firsts.get(sig)
             if first is not None and "replay_ms" not in first:
                 torch.cuda.synchronize(dev)
@@ -431,8 +440,10 @@ def compiled(fn):
         if (not any(t.is_cuda for t in tensors.values())
                 or torch.cuda.is_current_stream_capturing()):
             return fn(*args, **kwargs)
-        sig = signature(fn.__name__, tensors, fixed)
-        if not captures(sig):
+        with span("graphs.key"):
+            sig = signature(fn.__name__, tensors, fixed)
+            gated = captures(sig)
+        if not gated:
             with _set("inline"):
                 return fn(*args, **kwargs)
         return _cache.call(sig, fn, bound, tensors)

@@ -6,22 +6,57 @@ prints its CL_DEVICE_* attributes at startup and a per-phase trace with
 derived GFLOPS afterwards (``matrix_inversion_FP32.cpp:304-333``,
 ``:711-723``). :func:`trace` replaces the JAX package's ``jax.profiler``
 capture with a ``torch.profiler`` one. :func:`phase` marks the blocked
-driver's phases for it and for ``benchmarks/phases.py``.
-:func:`device_kernels`, :func:`device_ms` and :func:`events_ms` serve the
-measurement scripts (``chip_smoke.py``, ``probes/``).
+driver's phases for it and for ``benchmarks/phases.py``; :func:`span`
+marks the layer boundaries of every call (the API, the dispatch, the graph
+cache, the fused route's host code) for any profiler session;
+:func:`idle_by_span` puts the card's idle time in such a session down to
+them, and :func:`launch_leads` checks that the session's host and device
+records agree on the clock. :func:`device_kernels`, :func:`device_ms` and
+:func:`events_ms` serve the measurement scripts (``chip_smoke.py``,
+``probes/``).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 
 import torch
 
-from gpu_matrix_inversion_tpu_torch.utils import graphs
-
 # Whether phase() opens a record_function range; off outside trace() and
 # phase_ranges(), so that the hot path pays one flag test a phase.
 _ranges_on = False
+# The profiler's own test of whether a session records (kineto's, and the
+# legacy autograd profiler's).
+_recording = torch._C._autograd._profiler_enabled
+# The context span() and phase() return while they open no range.
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(name: str):
+    return torch.profiler.record_function(f"matinv::{name}")
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range ``matinv::<name>`` while
+    a profiler session records, else a shared no-op context (one call of
+    the profiler's enabled test: under 1 us a span on a CPU host, where an
+    open range costs 12-14 us). The range is a host record of the
+    session that records the device's operations, on its clock, so an idle
+    gap on the card can be put down to the span open during it
+    (:func:`idle_by_span`).
+
+    The layer boundaries of a call, nested on the caller's thread:
+    ``api.validate``, ``api.stage``, ``api.ok``, ``api.readback``,
+    ``api.convert`` (``api._invert_flat``); ``solver.inverse`` (the whole
+    dispatch); ``graphs.key``, ``graphs.copy_in``, ``graphs.replay``,
+    ``graphs.copy_out`` (a compiled call served from the graph cache);
+    ``fused.k1``, ``fused.gather`` (the fused route's host code). No
+    switch turns them on and nothing of them enters a graph's key: a
+    replayed graph runs as it does unprofiled."""
+    if _recording():
+        return _range(name)
+    return _NO_RANGE
 
 
 def phase(name: str):
@@ -31,8 +66,96 @@ def phase(name: str):
     slots with it: ``make_augmented``, ``pivot`` and ``row``; the fourth,
     ``column``, is the rest of the call."""
     if _ranges_on:
-        return torch.profiler.record_function(f"matinv::{name}")
-    return contextlib.nullcontext()
+        return _range(name)
+    return _NO_RANGE
+
+
+def idle_by_span(gaps, host) -> dict | None:
+    """``{span name: seconds}``: the card's idle intervals ``gaps``
+    (``(start_s, end_s)``, apart and in order) split by the innermost
+    ``matinv::`` range of ``host`` (``(name, start_s, seconds)`` host
+    records of the same profiler session) open over each part; None where
+    ``host`` holds no such range. An interval that crosses a boundary
+    between ranges is split at it. Idle time under no ``matinv::`` range
+    is the caller's and goes to no name. The program opens its ranges on
+    the caller's thread only, and they nest, so the innermost range open
+    at a moment is the open one that started last."""
+    spans = sorted((h for h in host if h[0].startswith("matinv::")),
+                   key=lambda h: (h[1], -h[2]))
+    if not spans:
+        return None
+    # The timeline as pieces (start, end, name) of the innermost range.
+    pieces, stack, t = [], [], 0.0
+
+    def close(until: float) -> None:
+        nonlocal t
+        while stack and stack[-1][1] <= until:
+            name, end = stack.pop()
+            if end > t:
+                pieces.append((t, end, name))
+                t = end
+
+    for name, start, dur in spans:
+        close(start)
+        if stack and start > t:
+            pieces.append((t, start, stack[-1][0]))
+        stack.append((name, start + dur))
+        t = start
+    close(float("inf"))
+    out, j = {}, 0
+    for lo, hi in gaps:
+        while j < len(pieces) and pieces[j][1] <= lo:
+            j += 1
+        k = j
+        while k < len(pieces) and pieces[k][0] < hi:
+            start, end, name = pieces[k]
+            part = min(hi, end) - max(lo, start)
+            if part > 0:
+                out[name] = out.get(name, 0.0) + part
+            k += 1
+    return out
+
+
+def launch_leads(events) -> list:
+    """``(lead_us, launch, record)`` for each runtime launch
+    (``cudaLaunchKernel``, ``cudaGraphLaunch``, ``cudaMemcpyAsync`` ...)
+    made inside a ``matinv::`` range, from one session's
+    ``prof.events()``: the microseconds from the launch's start on the host
+    to the start of the first device record it made (linked by correlation
+    id), its name and that record's. Every lead is at least 0 where the
+    host and device records share a clock: a device operation cannot start
+    before its launch. Some sessions put every device record early,
+    kernels and copies alike (13 of 64 sessions, by up to 3.2 ms; H100
+    80GB HBM3, 700 W), so a reader of a session's gaps checks it here
+    first."""
+    from torch.autograd import DeviceType
+    merged = []
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in events
+                         if e.device_type == DeviceType.CPU
+                         and e.name.startswith("matinv::")):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    starts = [lo for lo, _ in merged]
+
+    def inside(t) -> bool:
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t <= merged[i][1]
+
+    launched = {e.id: e for e in events
+                if e.device_type == DeviceType.CPU and e.name.startswith("cu")
+                and inside(e.time_range.start)}
+    first = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and e.id in launched
+                and not getattr(e, "is_user_annotation", False)
+                and (e.id not in first
+                     or e.time_range.start < first[e.id].time_range.start)):
+            first[e.id] = e
+    return [(e.time_range.start - launched[i].time_range.start,
+             launched[i].name, e.name) for i, e in first.items()]
 
 
 @contextlib.contextmanager
@@ -40,6 +163,7 @@ def phase_ranges():
     """Turn :func:`phase`'s ranges on for the enclosed block, whose
     compiled calls run eagerly (``graphs.disabled()``): a replayed graph
     opens no range, so its kernels could not be told apart by phase."""
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
     global _ranges_on
     prev, _ranges_on = _ranges_on, True
     try:
@@ -183,12 +307,16 @@ def device_kernels(fn, tries: int = 3) -> list[tuple[str, int, float]]:
                 fn()
             torch.cuda.synchronize()
         # Kernel and memcpy entries only: an operator's own entry would
-        # count its kernels' time a second time.
+        # count its kernels' time a second time, and so would a range's
+        # span on the device timeline (a span() or phase() range drawn
+        # over the kernels launched inside it).
         rows = [(e.key, e.count,
                  getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
                 for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and not is_marker(e.key)]
+                if e.device_type == DeviceType.CUDA and not is_marker(e.key)
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith("matinv::")]
         rows.sort(key=lambda row: -row[2])
         if rows and rows[0][2] > 0:
             return rows
