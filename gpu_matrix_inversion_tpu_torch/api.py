@@ -19,11 +19,22 @@ package: swallowing them as "singular matrix" misdiagnoses real bugs.
 Every function takes ``device`` as a keyword, ``"cuda"`` by default. The
 CPU is used only when ``device="cpu"`` is passed; without CUDA the default
 raises instead of carrying on elsewhere.
+
+Readback: an answer on the card is copied once, straight into page-locked
+host memory taken from PyTorch's caching host allocator, and the returned
+vector is a view of that block (its numpy ``base`` chain ends in the
+block's tensor). When the caller drops the answer and every view of it,
+the block returns to torch's host cache and a later call reuses it, so
+the cache keeps as many blocks as the caller ever held answers at once.
+Should page-locked memory run out, that call reads back into pageable
+memory instead. An answer on the CPU is copied once into a fresh array.
+:func:`stats` counts both kinds.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -48,6 +59,55 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+# What a failed page-locked allocation raises (torch.AcceleratorError,
+# where torch has it, need not be a RuntimeError).
+_HOST_ALLOC_ERRORS = (RuntimeError, getattr(torch, "AcceleratorError",
+                                            RuntimeError))
+_stats = {"pinned": 0, "pageable": 0}
+_stats_lock = threading.Lock()
+
+
+def stats() -> dict:
+    """``{"pinned": n, "pageable": n}``: the readbacks since the last
+    :func:`clear_stats`, by the host memory the answer landed in."""
+    with _stats_lock:
+        return dict(_stats)
+
+
+def clear_stats() -> None:
+    with _stats_lock:
+        for kind in _stats:
+            _stats[kind] = 0
+
+
+def _to_host(inv: torch.Tensor, dtype) -> tuple[torch.Tensor, str]:
+    """``inv`` as a C-contiguous host tensor of ``dtype`` that shares no
+    memory with any other live answer, and the kind of memory it is in.
+    A card's answer takes one copy into a page-locked block of torch's
+    host cache; the copy is synchronous, so it waits on the current
+    stream and the block needs no event when it is freed."""
+    want = getattr(torch, np.dtype(dtype).name)
+    if inv.device.type == "cuda":
+        try:
+            buf = torch.empty(inv.shape, dtype=want, pin_memory=True)
+        except _HOST_ALLOC_ERRORS:
+            return inv.to("cpu", want).contiguous(), "pageable"
+        return buf.copy_(inv), "pinned"
+    return torch.empty(inv.shape, dtype=want).copy_(inv), "pageable"
+
+
+def _readback(inv: torch.Tensor, dtype) -> np.ndarray:
+    """The answer as the flat numpy vector of ``dtype`` the API returns:
+    the host copy (span ``api.readback``), then a flat view of it (span
+    ``api.convert``)."""
+    with span("api.readback"):
+        host, kind = _to_host(inv, dtype)
+    with _stats_lock:
+        _stats[kind] += 1
+    with span("api.convert"):
+        return host.numpy().reshape(-1)
+
+
 def _invert_flat(flat, order: int, dtype, *, pivot: bool, device,
                  method: str = "auto") -> np.ndarray:
     """Shared flat-vector inversion core; returns flat inverse or empty.
@@ -66,10 +126,7 @@ def _invert_flat(flat, order: int, dtype, *, pivot: bool, device,
         ok = bool(ok)
     if not ok:
         return np.empty(0, dtype=dtype)
-    with span("api.readback"):
-        inv = inv.cpu()
-    with span("api.convert"):
-        return inv.numpy().reshape(-1).astype(dtype)
+    return _readback(inv, dtype)
 
 
 def matrix_inv_32(flat, order: int, *, device="cuda") -> np.ndarray:
@@ -180,14 +237,14 @@ def _bench(flat, order: int, dtype, *, pivot: bool, device,
         ok = ok and (res.identity_error
                      <= identity_check_tolerance(order, dtype))
     with timer.span("get_inverted"):
-        out = inv.cpu().numpy().reshape(-1)
+        out = _readback(inv, dtype)
     res.ok = ok
     if not res.ok:
         out = np.empty(0, dtype=dtype)
     if dtype == np.float64:
-        res.inversa64 = out.astype(np.float64)
+        res.inversa64 = out
     else:
-        res.inversa32 = out.astype(np.float32)
+        res.inversa32 = out
     res.times = dict(timer.times, total=timer.total())
     # MATINV_DEBUG_PHASES=1: fill the reference's make_augmented / pivot /
     # row / column slots from benchmarks/phases.py (api.py:196-207 of the

@@ -24,6 +24,12 @@ L3, L4 and L5 (the LU module's loops): bit for bit against their twins,
 NaN and infinite inputs included (NaN where the twin has NaN), ok equal;
 each LU route launches them and never runs the plain loops.
 
+The flat API's readback: the answer lands in page-locked memory, bit for
+bit what ``inv.cpu()`` reads; held answers share no memory; a view keeps
+its block alive; dropped answers' blocks serve later calls with no new
+page-locked allocation; a failed page-locked allocation reads back
+pageable.
+
 Tolerances as in ``chip_smoke.py``: pivot sequences identical, ok equal,
 values within 1e-4 of max|twin|; K1, K4 and K5 also elementwise against
 the twin (``_hold_to_twin``), K1's cluster branch byte-identical across
@@ -1601,3 +1607,101 @@ def test_l5_takes_b_in_another_dtype(cuda, lu_dtype, b_dtype):
     assert _same_bits(x, x_wide.to(b_dtype))
     if b_dtype == wide:
         assert _same_bits(x.cpu(), want)
+
+
+# The flat API's readback (``api._readback``): one copy from the card into
+# a page-locked block of torch's host cache, which the answer's numpy view
+# keeps alive and which a later call reuses once the caller drops it.
+
+READBACK_SIZES = [512, 4096]
+
+
+def _flat_input(n: int, seed: int) -> np.ndarray:
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    return hollow_random_matrix(n, seed=seed).reshape(-1)
+
+
+@pytest.mark.parametrize("n", READBACK_SIZES)
+def test_flat_answer_lands_in_page_locked_memory(cuda, n):
+    """The answer is a view of pinned memory, bit for bit the answer that
+    ``inv.cpu()`` reads back, and counted as a pinned readback."""
+    from gpu_matrix_inversion_tpu_torch import api
+    from gpu_matrix_inversion_tpu_torch.models import solver
+    flat = _flat_input(n, 101)
+    inv, ok = solver.inverse(torch.from_numpy(flat.reshape(n, n)).to(cuda))
+    assert bool(ok)
+    want = inv.cpu().numpy().reshape(-1)
+    api.clear_stats()
+    out = api.matrix_inv_32(flat, n, device=cuda)
+    assert api.stats() == {"pinned": 1, "pageable": 0}
+    assert torch.from_numpy(out).is_pinned()
+    assert out.shape == (n * n,) and out.dtype == np.float32
+    assert out.flags.c_contiguous and out.flags.writeable
+    assert out.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("n", READBACK_SIZES)
+def test_held_flat_answers_share_no_memory(cuda, n):
+    from gpu_matrix_inversion_tpu_torch import api
+    flat = _flat_input(n, 102)
+    first = api.matrix_inv_32(flat, n, device=cuda)
+    second = api.matrix_inv_32(flat, n, device=cuda)
+    assert not np.shares_memory(first, second)
+    assert not np.shares_memory(first, flat)
+    assert first.tobytes() == second.tobytes()
+
+
+@pytest.mark.parametrize("n", READBACK_SIZES)
+def test_view_keeps_its_block_after_the_answer_is_dropped(cuda, n):
+    """A reshaped view outlives the array it came from: five later calls
+    on another input leave its values as they were, so no call reuses a
+    block while a view of it lives."""
+    from gpu_matrix_inversion_tpu_torch import api
+    out = api.matrix_inv_32(_flat_input(n, 103), n, device=cuda)
+    view = out.reshape(n, n)
+    want = view.copy()
+    del out
+    other = _flat_input(n, 104)
+    for _ in range(5):
+        assert api.matrix_inv_32(other, n, device=cuda).size == n * n
+    assert view.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("n", READBACK_SIZES)
+def test_dropped_answers_return_their_blocks_to_the_cache(cuda, n):
+    """Once an answer is dropped its block serves the next call: 20
+    further calls make no new page-locked allocation."""
+    from gpu_matrix_inversion_tpu_torch import api
+    flat = _flat_input(n, 105)
+    assert api.matrix_inv_32(flat, n, device=cuda).size == n * n
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    api.clear_stats()
+    for _ in range(20):
+        assert api.matrix_inv_32(flat, n, device=cuda).size == n * n
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
+    assert api.stats() == {"pinned": 20, "pageable": 0}
+
+
+@pytest.mark.parametrize("n", READBACK_SIZES)
+def test_failed_pinned_allocation_reads_back_pageable(cuda, n, monkeypatch):
+    """With page-locked allocation made to raise, as when host memory runs
+    out, the call reads back into pageable memory: the same bits, counted
+    as one pageable readback."""
+    from gpu_matrix_inversion_tpu_torch import api
+    flat = _flat_input(n, 106)
+    want = api.matrix_inv_32(flat, n, device=cuda)
+    empty = torch.empty
+
+    def no_pinned(*args, **kwargs):
+        if kwargs.get("pin_memory"):
+            raise RuntimeError("CUDA error: out of memory")
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", no_pinned)
+    api.clear_stats()
+    out = api.matrix_inv_32(flat, n, device=cuda)
+    assert api.stats() == {"pinned": 0, "pageable": 1}
+    assert not torch.from_numpy(out).is_pinned()
+    assert out.shape == (n * n,) and out.flags.c_contiguous
+    assert out.tobytes() == want.tobytes()
