@@ -7,11 +7,15 @@ end, and the markers take that loss. The per-layer metrics
 (``port_bench/metrics/<name>.py``) read the :class:`Segment`.
 
 CUPTI loses records now and then, and has lost whole sessions. So the
-records are held against what was launched: each graph kernel node times
-the replays, and K1's eager launches as its wrapper counts them. A session
-that comes up short is printed on standard error and profiled again, up
-to three sessions; after that no traced metric is reported. No pass or
-fail rests on the profiler.
+records are held against what was launched: the kernel nodes of each CUDA
+graph the calls replayed, times that graph's own replays, and K1's eager
+launches as its wrapper counts them. A session that comes up short is
+printed on standard error and profiled again, up to three sessions; after
+that no traced metric is reported. No pass or fail rests on the profiler.
+
+The segment keeps the session's host records beside the device's, the
+program's ``matinv::`` spans among them, and the card's idle gaps, so
+that a reader can put idle time down to the span open over it.
 
 This is the benchmark's own copy of the arithmetic of the program's
 ``utils/profiling.py`` (markers, a retry on a session short of records),
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import re
 import sys
 import time
@@ -41,13 +46,19 @@ HOST_COPIES = ("Memcpy HtoD", "Memcpy DtoH")
 @dataclasses.dataclass
 class Segment:
     """What the traced calls ran. ``records``: ``(name, start_s,
-    seconds)`` of every device operation but the markers."""
+    seconds)`` of every device operation but the markers; ``host``: the
+    session's host records alike, its ranges (``matinv::`` spans,
+    ``port_bench::call``) among them; ``gaps``: ``(start_s, end_s)`` of
+    each interval of the segment in which no operation ran on the card
+    between two that did, in order, on the clock of both."""
     calls: int
     window_s: float
     busy_s: float
     records: list
     counters: dict
     work: dict
+    host: list = dataclasses.field(default_factory=list)
+    gaps: list = dataclasses.field(default_factory=list)
 
     def host_copies(self) -> list:
         return [r for r in self.records if r[0].startswith(HOST_COPIES)]
@@ -155,23 +166,73 @@ def _k1_launches() -> int:
     return fused.gj_kernel.launches
 
 
-def _replays() -> int:
+def graph_state() -> tuple:
+    """The program's graph cache as a call leaves it: ``({function:
+    replays}, keys)``, the replays of ``graphs.stats()`` and the cached
+    graphs' keys (each names its function, ``.fn``) in the order of their
+    last use, oldest first. As cheap as a read of the counters: no graph
+    is read."""
     from gpu_matrix_inversion_tpu_torch.utils import graphs
-    return sum(c["replays"] for c in graphs.stats().values())
+    return ({fn: c["replays"] for fn, c in graphs.stats().items()},
+            tuple(graphs._cache.entries))
 
 
-def expected(replays: int, k1_launches: int) -> dict:
-    """``{kernel name: records the session must hold at least}``: the
-    nodes of the graph last replayed times ``replays``, and K1's eager
-    launches (``|`` joins the names one entry stands for)."""
-    from gpu_matrix_inversion_tpu_torch.utils import graphs
+def graph_replays(states: list) -> collections.Counter:
+    """``{graph key: replays}`` over the calls between consecutive
+    ``states`` (:func:`graph_state`, read before the first call and after
+    each). A function replayed n times in a call replayed its n graphs
+    used last, once each; replays beyond its cached graphs go to the one
+    used last. Exact where no call replays one graph twice while another
+    graph of its function is cached."""
     out = collections.Counter()
-    if replays:
-        for name, nodes in graphs.kernel_nodes(last=1).items():
-            out[base_name(name)] += nodes * replays
+    for (before, _), (after, order) in zip(states, states[1:]):
+        for fn, total in after.items():
+            n = total - before.get(fn, 0)
+            keys = [k for k in reversed(order) if k.fn == fn][:max(n, 0)]
+            for key in keys:
+                out[key] += 1
+            if keys:
+                out[keys[0]] += n - len(keys)
+    return out
+
+
+def replayed_calls(states: list) -> int:
+    """The calls between consecutive ``states`` across which the program's
+    graph replays rose."""
+    totals = [sum(replays.values()) for replays, _ in states]
+    return sum(1 for a, b in zip(totals, totals[1:]) if b > a)
+
+
+def expected(replays: dict, order: tuple, k1_launches: int,
+             kernel_nodes=None) -> dict:
+    """``{kernel name: records the session must hold at least}``: the
+    kernel nodes of each graph in ``replays`` (:func:`graph_replays`)
+    times its own replays, and K1's eager launches (``|`` joins the names
+    one entry stands for). ``order``: the cache's keys as the session left
+    them, oldest first. A graph's nodes are read after the session, by
+    ``kernel_nodes`` (``graphs.kernel_nodes``): the j-th graph used last
+    is ``last=j`` less ``last=j - 1``. A graph no longer cached has no
+    nodes to read and is left out."""
+    if kernel_nodes is None:
+        from gpu_matrix_inversion_tpu_torch.utils import graphs
+        kernel_nodes = graphs.kernel_nodes
+    recent = {key: j for j, key in enumerate(reversed(order), 1)}
+
+    @functools.cache
+    def last(j: int) -> dict:
+        return kernel_nodes(last=j) if j else {}     # last=0: every graph
+
+    out = collections.Counter()
+    for key, n in replays.items():
+        j = recent.get(key)
+        if j is None or n <= 0:
+            continue
+        newer = last(j - 1)
+        for name, nodes in last(j).items():
+            out[base_name(name)] += (nodes - newer.get(name, 0)) * n
     if k1_launches:
         out["|".join(kernels.K1)] += k1_launches
-    return dict(out)
+    return {name: n for name, n in out.items() if n}
 
 
 def shortfall(want: dict, device: list) -> dict:
@@ -192,8 +253,7 @@ def profile(load, calls: int):
     work = load.work(calls)
     from torch.profiler import ProfilerActivity, profile as torch_profile
     for attempt in range(TRIES):
-        k1_before, replays0 = _k1_launches(), _replays()
-        replayed = 0
+        k1_before, states = _k1_launches(), [graph_state()]
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1)
@@ -201,30 +261,38 @@ def profile(load, calls: int):
             with torch.profiler.record_function(SEGMENT):
                 t0 = time.perf_counter()
                 for i in range(calls):
-                    r0 = _replays()
                     with torch.profiler.record_function(CALL):
                         load.call(i)
-                    replayed += _replays() > r0
+                    states.append(graph_state())
                 load.sync()
                 window_s = time.perf_counter() - t0
             torch.cuda._sleep(1)
             torch.cuda.synchronize()
         device, host = records(prof)
         device = [r for r in device if MARKER not in r[0]]
-        want = expected(_replays() - replays0, _k1_launches() - k1_before)
+        want = expected(graph_replays(states), states[-1][1],
+                        _k1_launches() - k1_before)
         short = shortfall(want, device)
         if device and not short:
-            seg = [h for h in host if h[0] == SEGMENT]
-            lo, hi = ((seg[0][1], seg[0][1] + seg[0][2]) if seg
-                      else (-float("inf"), float("inf")))
-            busy, gaps = union_s(device, lo, hi)
-            segment = Segment(calls, window_s, busy, device,
-                              {"replayed_calls": replayed}, work)
-            return segment, breakdown(device, host, gaps)
+            return assemble(calls, window_s, device, host,
+                            {"replayed_calls": replayed_calls(states)}, work)
         print(f"traced session {attempt + 1}: the profiler's records come "
               f"up short of the launches: {short or 'no device records'}",
               file=sys.stderr)
     return None, None
+
+
+def assemble(calls: int, window_s: float, device: list, host: list,
+             counters: dict, work: dict):
+    """The :class:`Segment` of a session's records and its breakdown: the
+    card's busy time and idle gaps within the host's segment range."""
+    seg = [h for h in host if h[0] == SEGMENT]
+    lo, hi = ((seg[0][1], seg[0][1] + seg[0][2]) if seg
+              else (-float("inf"), float("inf")))
+    busy, gaps = union_s(device, lo, hi)
+    segment = Segment(calls, window_s, busy, device, counters, work,
+                      host, gaps)
+    return segment, breakdown(device, host, gaps)
 
 
 def breakdown(device: list, host: list, gaps: list, top: int = 10) -> dict:

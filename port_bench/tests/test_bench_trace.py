@@ -83,3 +83,175 @@ def test_blocked_readers():
         assert spec.reader(f"device.idle_pct.{cells}")(seg) == \
             pytest.approx(50.0)
     assert spec.reader("api.copy_ms")(_segment(recs[:2])) is None
+
+
+class FakeCache:
+    """The program's graph cache as the records check sees it: graphs kept
+    in the order of their last use, replays counted by function, each
+    graph's kernel nodes."""
+
+    def __init__(self, nodes: dict):
+        self.nodes = nodes                    # key -> {kernel: nodes}
+        self.order = list(nodes)              # oldest first
+        self.replays = {}
+
+    def replay(self, key):
+        self.order.remove(key)
+        self.order.append(key)
+        self.replays[key.fn] = self.replays.get(key.fn, 0) + 1
+
+    def state(self):
+        return dict(self.replays), tuple(self.order)
+
+    def kernel_nodes(self, last=1):
+        """``graphs.kernel_nodes``: ``last=0`` reads every graph."""
+        out = {}
+        for key in self.order[-last:]:
+            for name, n in self.nodes[key].items():
+                out[name] = out.get(name, 0) + n
+        return out
+
+    def session(self, calls):
+        """The states a traced session reads: before the first call and
+        after each; ``calls``: the graphs each call replays."""
+        states = [self.state()]
+        for keys in calls:
+            for key in keys:
+                self.replay(key)
+            states.append(self.state())
+        return states
+
+
+class Key(tuple):
+    """A graph's key: its function and signature."""
+    fn = property(lambda self: self[0])
+
+
+PANEL = "_Z27panel_factor_cluster_kernelILb1ELb1EEvPKfPKiPiPfS3_S4_iiiiii"
+GEMM32 = "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize256x128x8"
+GEMM64 = "sm90_xmma_gemm_f64f64_f64f64_f64_nn_n_tilesize128x64x16"
+L4 = "_ZN12_GLOBAL__N_121lu_factor_grid_kernelIfEEvPfPiS1_iii"
+L5 = "_ZN12_GLOBAL__N_115lu_solve_kernelIfEEvPKfPKiPfiii"
+BLOCKED = Key(("blocked_inverse", 4096))
+LU = Key(("lu_inverse", 4096))
+NS = Key(("newton_schulz_refine", 4096))
+K1 = "|".join(trace.kernels.K1)
+
+
+def _parent_want(cache, replays, k1_launches):
+    """The parent's want: the graph used last, times every replay."""
+    want = {}
+    if replays:
+        for name, n in cache.kernel_nodes(last=1).items():
+            key = trace.base_name(name)
+            want[key] = want.get(key, 0) + n * replays
+    if k1_launches:
+        want[K1] = k1_launches
+    return want
+
+
+def _want(cache, states, k1_launches=0):
+    return trace.expected(trace.graph_replays(states), states[-1][1],
+                          k1_launches, cache.kernel_nodes)
+
+
+@pytest.mark.parametrize("k1_launches", [0, 40])
+def test_one_graph_a_call_wants_what_the_parent_wanted(k1_launches):
+    cache = FakeCache({NS: {GEMM64: 4}, LU: {L4: 1, L5: 1},
+                       BLOCKED: {PANEL: 32, GEMM32: 64, GEMM64: 3}})
+    states = cache.session([[BLOCKED]] * 40)
+    want = _want(cache, states, k1_launches)
+    assert want == _parent_want(cache, 40, k1_launches)
+    assert want["panel_factor_cluster_kernel"] == 32 * 40
+    assert trace.replayed_calls(states) == 40
+
+
+def test_k1_alone_wants_its_launches():
+    cache = FakeCache({BLOCKED: {PANEL: 32}})
+    states = cache.session([[]] * 200)
+    assert _want(cache, states, 200) == _parent_want(cache, 0, 200) \
+        == {K1: 200}
+    assert trace.replayed_calls(states) == 0
+
+
+def test_two_graphs_a_call_want_each_its_own_replays():
+    """``lu_inverse_refined``: the LU graph, then the Newton-Schulz one;
+    the parent counted the Newton-Schulz graph twice a call."""
+    cache = FakeCache({BLOCKED: {PANEL: 32}, NS: {GEMM64: 4},
+                       LU: {L4: 1, L5: 1}})
+    states = cache.session([[LU, NS]] * 10)
+    want = _want(cache, states)
+    assert want == {"lu_factor_grid_kernel": 10, "lu_solve_kernel": 10,
+                    GEMM64: 40}
+    assert _parent_want(cache, 20, 0) == {GEMM64: 80}
+    assert trace.shortfall(want, [(GEMM64, 0, 1)] * 40 + [
+        ("void (anonymous namespace)::lu_factor_grid_kernel<float>()",
+         0, 1)] * 10 + [("lu_solve_kernel", 0, 1)] * 10) == {}
+    assert trace.replayed_calls(states) == 10
+
+
+def test_a_different_graph_each_call_wants_each_graphs_replays():
+    """A sweep: one function, a graph an order, cycled call by call."""
+    sizes = [Key(("blocked_inverse", n)) for n in (1024, 2048, 4096)]
+    nodes = {key: {PANEL: n // 128, GEMM32: n // 64}
+             for key, n in zip(sizes, (1024, 2048, 4096))}
+    cache = FakeCache({LU: {L4: 1}} | nodes)
+    calls = [[sizes[i % 3]] for i in range(7)]
+    want = _want(cache, cache.session(calls))
+    assert want == {"panel_factor_cluster_kernel": 3 * 8 + 2 * 16 + 2 * 32,
+                    GEMM32: 3 * 16 + 2 * 32 + 2 * 64}
+
+
+def test_replays_beyond_a_functions_graphs_go_to_the_one_used_last():
+    cache = FakeCache({BLOCKED: {PANEL: 32}, NS: {GEMM64: 4}})
+    states = cache.session([[NS, NS]] * 3)
+    assert trace.graph_replays(states) == {NS: 6}
+    assert _want(cache, states) == {GEMM64: 24}
+
+
+def test_a_graph_no_longer_cached_is_left_out():
+    cache = FakeCache({NS: {GEMM64: 4}, LU: {L4: 1}})
+    states = cache.session([[LU, NS]] * 2)
+    replays = trace.graph_replays(states)
+    assert trace.expected(replays, (NS,), 0, cache.kernel_nodes) == {
+        GEMM64: 8}
+
+
+def test_graph_state_reads_the_programs_cache():
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
+    graphs.clear()
+    assert trace.graph_state() == ({}, ())
+
+
+def _innermost_idle(segment):
+    """A reader as a later one would be: each idle gap of the segment put
+    down to the innermost ``matinv::`` span open at its middle."""
+    out = {}
+    for start, end in segment.gaps:
+        mid = (start + end) / 2
+        open_ = [h for h in segment.host if h[0].startswith("matinv::")
+                 and h[1] <= mid <= h[1] + h[2]]
+        if open_:
+            name = max(open_, key=lambda h: h[1])[0]
+            out[name] = out.get(name, 0.0) + end - start
+    return out
+
+
+def test_the_segment_keeps_the_host_spans_and_the_gaps():
+    device = [("k", 0.0, 1.0), ("k", 2.0, 1.0), ("k", 3.5, 0.5),
+              ("k", 20.0, 1.0)]
+    host = [("port_bench::segment", -1.0, 10.0),
+            ("port_bench::call", 0.0, 3.2),
+            ("matinv::solver.inverse", 0.1, 3.0),
+            ("matinv::graphs.replay", 1.1, 0.8),
+            ("port_bench::call", 3.3, 1.0)]
+    seg, out = trace.assemble(2, 10.0, device, host,
+                              {"replayed_calls": 2}, {})
+    assert seg.host == host
+    assert seg.gaps == [(1.0, 2.0), (3.0, 3.5)]
+    assert seg.busy_s == pytest.approx(2.5)
+    assert _innermost_idle(seg) == pytest.approx(
+        {"matinv::graphs.replay": 1.0})
+    assert dict(out["idle_gaps"]) == pytest.approx(
+        {"matinv::graphs.replay": 1.0, "port_bench::segment": 0.5})
+    assert trace.Segment(1, 1.0, 1.0, [], {}, {}).gaps == []
