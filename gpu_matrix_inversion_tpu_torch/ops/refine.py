@@ -21,6 +21,7 @@ import torch
 
 from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
+from gpu_matrix_inversion_tpu_torch.utils.profiling import span
 
 
 @compiled
@@ -64,10 +65,17 @@ def lu_inverse_refined(a: torch.Tensor, *, iters: int = 2,
                        residual_dtype=None):
     """FP32 LU inverse (the spec getri) plus ``iters`` Newton-Schulz steps
     in ``residual_dtype``; returns ``(inverse, ok)`` (refine.py:86-96, the
-    BASELINE.md configs[3] path: FP32 factor, FP64-level residual)."""
+    BASELINE.md configs[3] path: FP32 factor, FP64-level residual).
+
+    Profiler spans (``utils/profiling.span``): ``refine.inverse`` over the
+    whole call, inside it ``refine.factor`` (the FP32 cast and the getri)
+    then ``refine.polish`` (the Newton-Schulz steps)."""
     from gpu_matrix_inversion_tpu_torch.ops.lu import lu_inverse
 
-    x0, ok = lu_inverse(a.to(torch.float32))
-    x = newton_schulz_refine(a, x0, iters=iters,
-                             residual_dtype=residual_dtype)
-    return x, ok & torch.isfinite(x).all(dim=(-2, -1))
+    with span("refine.inverse"):
+        with span("refine.factor"):
+            x0, ok = lu_inverse(a.to(torch.float32))
+        with span("refine.polish"):
+            x = newton_schulz_refine(a, x0, iters=iters,
+                                     residual_dtype=residual_dtype)
+        return x, ok & torch.isfinite(x).all(dim=(-2, -1))

@@ -8,12 +8,12 @@ derived GFLOPS afterwards (``matrix_inversion_FP32.cpp:304-333``,
 capture with a ``torch.profiler`` one. :func:`phase` marks the blocked
 driver's phases for it and for ``benchmarks/phases.py``; :func:`span`
 marks the layer boundaries of every call (the API, the dispatch, the graph
-cache, the fused route's host code) for any profiler session;
-:func:`idle_by_span` puts the card's idle time in such a session down to
-them, and :func:`launch_leads` checks that the session's host and device
-records agree on the clock. :func:`device_kernels`, :func:`device_ms` and
-:func:`events_ms` serve the measurement scripts (``chip_smoke.py``,
-``probes/``).
+cache, the fused route's host code, the refined LU route) for any profiler
+session; :func:`idle_by_span` puts the card's idle time in such a session
+down to them, and :func:`launch_leads` checks that the session's host and
+device records agree on the clock. :func:`device_kernels`,
+:func:`device_ms` and :func:`events_ms` serve the measurement scripts
+(``chip_smoke.py``, ``probes/``).
 """
 
 from __future__ import annotations
@@ -51,9 +51,11 @@ def span(name: str):
     ``api.convert`` (``api._invert_flat``); ``solver.inverse`` (the whole
     dispatch); ``graphs.key``, ``graphs.copy_in``, ``graphs.replay``,
     ``graphs.copy_out`` (a compiled call served from the graph cache);
-    ``fused.k1``, ``fused.gather`` (the fused route's host code). No
-    switch turns them on and nothing of them enters a graph's key: a
-    replayed graph runs as it does unprofiled."""
+    ``fused.k1``, ``fused.gather`` (the fused route's host code);
+    ``refine.inverse``, ``refine.factor``, ``refine.polish``
+    (``ops/refine.lu_inverse_refined``). No switch turns them on and
+    nothing of them enters a graph's key: a replayed graph runs as it does
+    unprofiled."""
     if _recording():
         return _range(name)
     return _NO_RANGE

@@ -12,7 +12,8 @@ the run's result line, then one JSON line (appended to ``--out`` too):
 - ``idle_ms``: the card's idle time between its operations inside the
   segment, ms a traced call, by layer: ``api`` (innermost span
   ``api.*``), ``dispatch`` (``solver.*``, ``graphs.*``, ``fused.*``: the
-  dispatch and the routes' host code) and ``caller`` (no span open), and
+  dispatch and the routes' host code), ``refine`` (``refine.*``: the
+  refined LU route's own host code) and ``caller`` (no span open), and
   by span (``utils/profiling.idle_by_span``);
 - ``wake_ms``: for each host synchronize (``cudaStreamSynchronize``,
   ``cudaDeviceSynchronize``), how long after the last device operation
@@ -49,7 +50,8 @@ from gpu_matrix_inversion_tpu_torch.utils.profiling import (  # noqa: E402
 
 LAYERS = {"api": ("matinv::api.",),
           "dispatch": ("matinv::solver.", "matinv::graphs.",
-                       "matinv::fused.")}
+                       "matinv::fused."),
+          "refine": ("matinv::refine.",)}
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 
 

@@ -16,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from gpu_matrix_inversion_tpu_torch import api  # noqa: E402
+from gpu_matrix_inversion_tpu_torch import api, ops  # noqa: E402
 from gpu_matrix_inversion_tpu_torch.models import solver  # noqa: E402
 from gpu_matrix_inversion_tpu_torch.utils import graphs  # noqa: E402
 from gpu_matrix_inversion_tpu_torch.utils import profiling  # noqa: E402
@@ -98,6 +98,35 @@ def test_batched_inverse_spans(n):
     assert got[1][2] <= got[2][1]
 
 
+REFINE = ["matinv::refine.inverse", "matinv::refine.factor",
+          "matinv::refine.polish"]
+
+
+def test_refined_route_spans():
+    """``ops.lu_inverse_refined`` on the CPU: ``refine.inverse`` over the
+    call, ``refine.factor`` (the FP32 cast and getri) then
+    ``refine.polish`` (the Newton-Schulz steps) inside it, apart and in
+    that order; the compiled calls run eagerly here, so no ``graphs.*``
+    span opens."""
+    a = torch.from_numpy(hollow_random_matrix(64, seed=9)).double()
+    got = _spans(lambda: ops.lu_inverse_refined(
+        a, iters=2, residual_dtype=torch.float64))
+    assert [s[0] for s in got] == REFINE
+    assert all(_inside(s, got[0]) for s in got[1:])
+    assert got[1][2] <= got[2][1]
+
+
+def test_refined_route_answers_alike_traced_or_not():
+    """The spans change nothing of the answer: the same bits, ok and
+    dtype with a profiler recording and without."""
+    from torch.profiler import ProfilerActivity, profile
+    a = torch.from_numpy(hollow_random_matrix(48, seed=10)).double()
+    x_off, ok_off = ops.lu_inverse_refined(a, residual_dtype=torch.float64)
+    with profile(activities=[ProfilerActivity.CPU]):
+        x_on, ok_on = ops.lu_inverse_refined(a, residual_dtype=torch.float64)
+    assert torch.equal(x_on, x_off) and bool(ok_on) and bool(ok_off)
+
+
 def test_graph_cache_opens_no_span_on_the_cpu():
     """A compiled route on CPU tensors runs its body eagerly: the graph
     cache's spans belong to calls it serves, so none opens here (nor the
@@ -122,6 +151,9 @@ def test_no_range_without_a_profiler(monkeypatch):
     assert bool(ok.all())
     _, ok = solver.inverse(torch.from_numpy(a), method="blocked",
                            block_size=32)
+    assert bool(ok)
+    _, ok = ops.lu_inverse_refined(torch.from_numpy(a).double(),
+                                   residual_dtype=torch.float64)
     assert bool(ok)
     assert profiling.span("api.stage") is profiling.span("graphs.replay")
 
