@@ -417,11 +417,14 @@ def main() -> None:
         clusters[f"L3 ({m}, {b}) fp64"] = geo.ctas
         log(f"  L3 ({m}, {b}) fp64: a grid of {geo.ctas} CTAs of {geo.rows} "
             f"rows (in {'shared' if geo.rows_shared else 'device'} memory)")
-    for bsz, k in ((1, 16), (1, 4096), (64, 128)):
-        kc = lu.lu_solve_geometry(bsz, k, gauss_jordan.sm_count(0))
-        clusters[f"L5 ({bsz}, k = {k})"] = bsz * -(-k // kc)
-        log(f"  L5 ({bsz} matrices, k = {k}): {kc} columns a CTA, "
-            f"{bsz * -(-k // kc)} CTAs")
+    for bsz, n, k in ((1, 4096, 16), (1, 4096, 4096), (64, 128, 128)):
+        plan = lu.lu_solve_plan(bsz, n, k, 4, gauss_jordan.sm_count(0))
+        clusters[f"L5 ({bsz}, {n}^2, k = {k})"] = plan.ctas
+        log(f"  L5 ({bsz}, {n}^2, k = {k}): "
+            + (f"clusters of {plan.cluster} CTAs, {plan.kc} columns and "
+               f"{plan.smem} bytes of shared memory a CTA"
+               if plan.cluster else f"{plan.kc} columns a CTA")
+            + f", {plan.ctas} CTAs")
 
     # ---- phase 2: build report -----------------------------------------
     phase("phase 2: build report")

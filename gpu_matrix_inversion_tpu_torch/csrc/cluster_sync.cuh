@@ -1,7 +1,8 @@
 // The step exchange of the cluster kernels (K1's m = 256 .. 640 branch in
 // fused_gj.cu; K2, K3 and K6 in panel_factor.cu): 16-byte st.async stores
 // into another CTA's shared memory, each completing on that CTA's
-// mbarrier, and the waits on those barriers.
+// mbarrier, and the waits on those barriers. L5's cluster path
+// (lu_solve.cu) uses the barriers, and arrivals on another CTA's.
 #pragma once
 
 #include <cstdint>
@@ -67,6 +68,26 @@ __device__ __forceinline__ void store_to_peer(uint32_t addr, uint32_t bar,
       "[%0], {%1, %2, %3, %4}, [%5];" ::"r"(addr),
       "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
       "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
+// A barrier whose phase completes after `count` arrivals, with no bytes
+// expected. Thread 0 only, before the
+// cluster's first sync.
+__device__ __forceinline__ void bar_init_count(uint64_t* bar,
+                                               uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival on a barrier of another CTA (`peer` from peer_addr), after
+// this thread's earlier reads and writes (release at cluster scope).
+__device__ __forceinline__ void bar_arrive_peer(uint32_t peer) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+          peer)
       : "memory");
 }
 

@@ -38,6 +38,7 @@ batch is a loop here.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 
@@ -47,7 +48,8 @@ from gpu_matrix_inversion_tpu_torch.ops.blocked import (_default_group_size,
                                                         _select_block_params,
                                                         logical_geometry,
                                                         pivot_search)
-from gpu_matrix_inversion_tpu_torch.ops.fused import H100_SMS, _fms
+from gpu_matrix_inversion_tpu_torch.ops.fused import (H100_SMS, SHARED_BYTES,
+                                                      _fms)
 from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
     grid_props_bytes, launch_matrix_loop, sm_count)
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
@@ -197,19 +199,84 @@ def lu_solve_twin(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor):
 
 lu_solve_twin.calls = 0
 
-# L5 gives a CTA at most this many right-hand-side columns.
+# L5's per-column path gives a CTA at most this many right-hand-side
+# columns.
 LU_SOLVE_MAX_COLS = 16
 
 
 def lu_solve_geometry(batch: int, k: int, sms: int = H100_SMS) -> int:
-    """The right-hand-side columns a CTA of L5 takes: LU_SOLVE_MAX_COLS,
-    halved (to 1) while the (matrix, column tile) CTAs leave SMs idle.
-    (1, k = 16): 1, so 16 CTAs; (1, k = 4096): 16, so 256; (64, k = 128):
-    16, so 512."""
+    """The right-hand-side columns a CTA of L5's per-column path takes:
+    LU_SOLVE_MAX_COLS, halved (to 1) while the (matrix, column tile) CTAs
+    leave SMs idle. (1, k = 16): 1, so 16 CTAs; (1, k = 4096): 16, so 256;
+    (64, k = 128): 16, so 512."""
     kc = LU_SOLVE_MAX_COLS
     while kc > 1 and batch * -(-k // kc) < sms:
         kc //= 2
     return kc
+
+
+# L5's cluster path: a tile of 256 bytes of each row's right-hand sides
+# (64 fp32 or 32 fp64 columns) on one cluster of at most 16 CTAs.
+LU_SOLVE_TILE_BYTES = 256
+LU_SOLVE_MAX_CLUSTER = 16
+# Below this order the cluster path takes only batches whose per-column
+# CTAs would fill the card twice over.
+LU_SOLVE_CLUSTER_MIN_N = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class LuSolvePlan:
+    """How L5 runs a solve: ``cluster`` CTAs a cluster, one cluster a
+    (matrix, tile of ``kc`` columns), ``smem`` bytes of shared memory a
+    CTA (the cluster path); or ``cluster`` 0, one CTA a (matrix, tile of
+    ``kc`` columns) (the per-column path). ``ctas`` CTAs in all, each
+    writing one flag."""
+    cluster: int
+    kc: int
+    smem: int
+    ctas: int
+
+
+def lu_solve_smem(n: int, cluster: int, itemsize: int) -> int:
+    """Shared memory of a CTA of L5's cluster path at order n
+    (``cluster_smem_bytes`` in ``csrc/lu_solve.cu``): four barriers, two
+    buffers of a block's 32 finished rows of the tile, the owner's two
+    32 x 32 blocks of the factor, and the CTA's blocks of 32 rows of y,
+    each row of these three padded by 16 bytes."""
+    blocks = -(-(-(-n // 32)) // cluster)
+    return (32 + 2 * 32 * LU_SOLVE_TILE_BYTES + 2 * 32 * (32 * itemsize + 16)
+            + blocks * 32 * (LU_SOLVE_TILE_BYTES + 16))
+
+
+def lu_solve_plan(batch: int, n: int, k: int, itemsize: int,
+                  sms: int = H100_SMS) -> LuSolvePlan:
+    """L5's path for a (batch, n, n) solve of k right-hand sides in a dtype
+    of ``itemsize`` bytes, by shape alone.
+
+    The cluster path where a CTA's rows fit its shared memory and either n
+    is at least LU_SOLVE_CLUSTER_MIN_N or the per-column path's CTAs would
+    fill the card twice over; C the largest power of two up to
+    LU_SOLVE_MAX_CLUSTER and the count of 32-row blocks, halved while the
+    clusters' CTAs outnumber two an SM and two CTAs of half as many still
+    share an SM (fewer finished blocks to send, more tiles in flight):
+    (1, 4096^2) C = 16, 95,264 bytes a CTA, 64 clusters at k = 4096 fp32;
+    (64, 128^2, k = 128) C = 2. Else the per-column path,
+    :func:`lu_solve_geometry`: below n = 512 with few CTAs (a chain of 2 n
+    short steps beats 2 n / 32 exchanges; H100, ``PERF.md``) and past
+    n = 11,776 (fp32: y outgrows a cluster of 16)."""
+    kc_col = lu_solve_geometry(batch, k, sms)
+    col_ctas = batch * -(-k // kc_col)
+    blocks = -(-n // 32)
+    c = min(LU_SOLVE_MAX_CLUSTER, 1 << (blocks.bit_length() - 1))
+    if (lu_solve_smem(n, c, itemsize) > SHARED_BYTES
+            or (n < LU_SOLVE_CLUSTER_MIN_N and col_ctas < 2 * sms)):
+        return LuSolvePlan(0, kc_col, 0, col_ctas)
+    kc = LU_SOLVE_TILE_BYTES // itemsize
+    tiles = batch * -(-k // kc)
+    while (c > 1 and tiles * c > 2 * sms
+           and 2 * lu_solve_smem(n, c // 2, itemsize) <= SHARED_BYTES):
+        c //= 2
+    return LuSolvePlan(c, kc, lu_solve_smem(n, c, itemsize), tiles * c)
 
 
 def _lu_solve_batched(lu: torch.Tensor, perm: torch.Tensor,
@@ -217,8 +284,10 @@ def _lu_solve_batched(lu: torch.Tensor, perm: torch.Tensor,
     """L5 (``csrc/lu_solve.cu``): getrs on (B, n, n), (B, n), (B, n, k);
     ``(x, ok)`` of :func:`lu_solve_twin` bit for bit.
 
-    A CPU tensor runs the twin. A CUDA tensor launches L5 in fp64 or fp32,
-    one CTA a (matrix, tile of :func:`lu_solve_geometry` columns); bf16 and
+    A CPU tensor runs the twin. A CUDA tensor launches L5 in fp64 or fp32
+    on the path :func:`lu_solve_plan` chooses by shape: one cluster a
+    (matrix, tile of 256 bytes of columns), or one CTA a (matrix, tile of
+    :func:`lu_solve_geometry` columns); bf16 and
     fp16 are computed in fp32 and x returned in the input's dtype. Where
     b's dtype differs from the factor's, the solve runs in the wider of the
     two and x is returned in b's dtype, as the twin returns it: the twin's
@@ -250,21 +319,35 @@ def _lu_solve_batched(lu: torch.Tensor, perm: torch.Tensor,
     bsz, n, _ = lu.shape
     k = b.shape[-1]
     dev = lu.device
-    kc = lu_solve_geometry(bsz, k, sm_count(_device_index(lu)))
+    plan = lu_solve_plan(bsz, n, k, lu.element_size(),
+                         sm_count(_device_index(lu)))
     lib = cuda_build.load()
     x = torch.empty_like(b)
-    flags = torch.empty((bsz, -(-k // kc)), dtype=torch.int32, device=dev)
+    flags = torch.empty((bsz, plan.ctas // bsz), dtype=torch.int32,
+                        device=dev)
+    # The cluster path's two slots a cluster of a block's finished rows.
+    work = (torch.empty((plan.ctas // plan.cluster, 2, 32, plan.kc),
+                        dtype=lu.dtype, device=dev) if plan.cluster else None)
     err = lib.matinv_lu_solve(
         lu.data_ptr(), perm.data_ptr(), b.data_ptr(), x.data_ptr(),
-        flags.data_ptr(), bsz, n, k, kc, int(lu.dtype == torch.float64),
+        flags.data_ptr(), None if work is None else work.data_ptr(), bsz, n,
+        k, plan.kc, plan.cluster, int(lu.dtype == torch.float64),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "L5 lu_solve")
     if not cuda_build.capturing():   # a graph's record is no launch
         _lu_solve_batched.launches += 1
+        if plan.cluster:
+            _lu_solve_batched.cluster_launches += 1
+        else:
+            _lu_solve_batched.column_launches += 1
     return x, (flags != 0).all(dim=1)
 
 
+# launches: every launch; cluster_launches and column_launches: those of
+# each path.
 _lu_solve_batched.launches = 0
+_lu_solve_batched.cluster_launches = 0
+_lu_solve_batched.column_launches = 0
 
 
 @compiled

@@ -246,11 +246,12 @@ def main() -> None:
     for k in (16, 4096):
         rhs = torch.from_numpy(rng.standard_normal((1, 4096, k)).astype(
             np.float32)).to(dev)
-        kc = lu.lu_solve_geometry(1, k, sms)
+        plan = lu.lu_solve_plan(1, 4096, k, 4, sms)
         ms = _events_ms(lambda: lu._lu_solve_batched(fac, perm, rhs), 5)
-        print(f"L5 (1, 4096^2, k = {k}) fp32: {-(-k // kc)} CTAs of {kc} "
-              f"columns, {ms:.4f} ms a launch, {ms * 1e3 / 8192:.3f} us a "
-              f"step")
+        print(f"L5 (1, 4096^2, k = {k}) fp32: {plan.ctas} CTAs"
+              + (f" in clusters of {plan.cluster}" if plan.cluster else "")
+              + f", {plan.kc} columns a tile, {ms:.4f} ms a launch, "
+              f"{ms * 1e3 / 256:.3f} us a block of 32 steps")
 
 
 if __name__ == "__main__":

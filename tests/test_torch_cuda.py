@@ -1450,10 +1450,18 @@ def test_l4_matches_twin(cuda, bsz, n, dtype, pivot, kind):
     (1, 200, 1, torch.float64),       # a vector right-hand side
     (2, 130, 33, torch.float64),      # ragged blocks and column tiles
     (4, 100, 5, torch.float64),       # singular, NaN and inf members
+    (1, 4096, 4096, torch.float32),   # lu_inverse_refined's identity
+    (1, 1000, 777, torch.float32),    # ragged, 13 tiles of a cluster of 16
+    (3, 512, 300, torch.float32),     # a batch of three
+    (1, 2048, 2048, torch.float64),   # fp64 at k = n
+    (4, 600, 70, torch.float32),      # special members, a cluster of 16
+    (1, 1001, 3, torch.float32),      # rows off 16 bytes: scalar loads
+    (1, 12320, 2, torch.float32),     # past a cluster's shared memory
 ])
 def test_l5_matches_twin(cuda, bsz, n, k, dtype):
     """L5 (csrc/lu_solve.cu) against lu_solve_twin on the card: x's bits
-    and ok identical, on factors from L4."""
+    and ok identical, on factors from L4, on either path
+    (``lu.lu_solve_plan``)."""
     rng = np.random.default_rng(n + k)
     kind = "special" if bsz == 4 else "normal"
     x = torch.from_numpy(_lu_members(rng, bsz, n, kind)).to(dtype).to(cuda)
@@ -1465,6 +1473,32 @@ def test_l5_matches_twin(cuda, bsz, n, k, dtype):
     assert _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
     if kind == "special":
         assert got[1].tolist() == [True, False, False, False]
+
+
+@pytest.mark.parametrize("bsz, n, k, dtype, path", [
+    (1, 4096, 4096, torch.float32, "cluster"),
+    (1, 4096, 16, torch.float32, "cluster"),
+    (64, 128, 128, torch.float32, "cluster"),
+    (1, 2048, 2048, torch.float64, "cluster"),
+    (1, 12320, 2, torch.float32, "column"),
+    (4, 128, 1, torch.float32, "column"),
+])
+def test_l5_takes_the_planned_path(cuda, bsz, n, k, dtype, path):
+    """Each solve launches L5 once, on the path lu_solve_plan names for its
+    shape: the path's own counter grows by one, the other's not at all."""
+    plan = lu.lu_solve_plan(bsz, n, k, torch.finfo(dtype).bits // 8)
+    assert ("cluster" if plan.cluster else "column") == path
+    eye = torch.eye(n, k, dtype=dtype, device=cuda).expand(bsz, n, k)
+    perm = torch.arange(n, device=cuda).expand(bsz, n).contiguous()
+    fn = lu._lu_solve_batched
+    before = (fn.launches, fn.cluster_launches, fn.column_launches)
+    x, ok = fn(torch.eye(n, dtype=dtype, device=cuda).expand(bsz, n, n)
+               .contiguous(), perm, eye.contiguous())
+    torch.cuda.synchronize()
+    grown = tuple(now - was for now, was in zip(
+        (fn.launches, fn.cluster_launches, fn.column_launches), before))
+    assert grown == ((1, 1, 0) if path == "cluster" else (1, 0, 1))
+    assert bool(ok.all()) and torch.equal(x, eye)
 
 
 @pytest.mark.parametrize("m, b, dtype, pivot, mask", [

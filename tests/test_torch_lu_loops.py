@@ -243,6 +243,38 @@ def test_l5_geometry(batch, k, kc):
     assert batch * tiles >= min(tgj.H100_SMS, batch * k) or kc == 16
 
 
+@pytest.mark.parametrize("batch, n, k, itemsize, cluster, kc, ctas", [
+    (1, 4096, 4096, 4, 16, 64, 1024),   # lu_inverse_refined 4096^2
+    (1, 4096, 16, 4, 16, 64, 16),       # solve(..., refine_iters=2)
+    (64, 128, 128, 4, 2, 64, 256),      # inverse(method="lu") on a batch
+    (1, 4096, 4096, 8, 16, 32, 2048),   # fp64 getri: 32 columns a tile
+    (16, 1024, 1024, 4, 4, 64, 1024),   # many tiles: clusters of 4
+    (1, 512, 1, 4, 16, 64, 16),         # the smallest n a lone solve takes
+    (1, 11776, 1, 4, 16, 64, 16),       # the largest n a cluster holds
+    (1, 11777, 1, 4, 0, 1, 1),          # past it: the per-column path
+    (1, 16384, 16, 4, 0, 1, 16),
+    (1, 200, 1, 8, 0, 1, 1),            # small n: the per-column path
+    (3, 100, 5, 8, 0, 1, 15),
+    (8, 256, 256, 4, 0, 8, 256),        # small n, under 2 CTAs an SM
+])
+def test_l5_plan(batch, n, k, itemsize, cluster, kc, ctas):
+    """L5's path by shape: the cluster path where the CTA's rows fit one
+    block's shared memory and n >= 512 or the batch fills the card (a
+    cluster of the largest power of two up to 16 and the count of 32-row
+    blocks, halved while CTAs outnumber two an SM, a tile of 256 bytes of
+    columns); else the per-column path of lu_solve_geometry."""
+    plan = tlu.lu_solve_plan(batch, n, k, itemsize)
+    assert (plan.cluster, plan.kc, plan.ctas) == (cluster, kc, ctas)
+    if plan.cluster:
+        assert plan.smem == tlu.lu_solve_smem(n, cluster, itemsize)
+        assert plan.smem <= tgj.SHARED_BYTES
+        assert kc * itemsize == tlu.LU_SOLVE_TILE_BYTES
+    else:
+        assert (tlu.lu_solve_smem(n, 16, itemsize) > tgj.SHARED_BYTES
+                or n < tlu.LU_SOLVE_CLUSTER_MIN_N)
+        assert kc == tlu.lu_solve_geometry(batch, k)
+
+
 @pytest.mark.parametrize("n, batch, itemsize, branch, ctas, shared", [
     (128, 64, 4, "cluster", 2, True),     # inverse(method="lu") batches
     (200, 1, 8, "cluster", 8, True),
