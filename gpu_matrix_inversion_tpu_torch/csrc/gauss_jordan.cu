@@ -70,7 +70,7 @@
 // chain's latency at small n, the update's traffic at large n. On the grid
 // branch past n ~ 1900 (fp64) the rows live in the device workspace
 // (n = 4096 fp32: 64 MB, past the 50 MB L2). Measured on an H100 80GB HBM3
-// at 700 W (chip_smoke.py phase 7, probes/loop_phases.py): ~0.63 ms at
+// at 700 W (CUDA events; probes/loop_phases.py for a step): ~0.63 ms at
 // (64, 128^2) fp32 (~5 us a step; torch.linalg.lu_factor 1.6 to 2.5 ms
 // over four runs), ~0.77 ms at (1, 200^2) fp64, ~178 ms at (1, 4096^2)
 // fp32 on the grid (~44 us a step, three quarters of its cycles in the

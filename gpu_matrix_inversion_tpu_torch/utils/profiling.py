@@ -13,7 +13,7 @@ session; :func:`idle_by_span` puts the card's idle time in such a session
 down to them, and :func:`launch_leads` checks that the session's host and
 device records agree on the clock. :func:`device_kernels`,
 :func:`device_ms` and :func:`events_ms` serve the measurement scripts
-(``chip_smoke.py``, ``probes/``).
+(``probes/``) and the on-card tests (``tests/test_torch_cuda.py``).
 """
 
 from __future__ import annotations

@@ -24,9 +24,9 @@ one card. It prints and writes to ``--out`` a JSON record:
   blocks at b = 64 and 128 (standard
   normal; the last block singular, of which only its ok flag counts) and
   the ok flag of a block with a NaN; K5 on 257-block batches at b = 128, 64, 40 and 8
-  (standard normal plus b I, the last block with a zero pivot at step 7,
-  as ``chip_smoke.py`` phase 4c makes them); K6 on (8, 128, 1024) and
-  (4, 128, 2048); K7 in
+  (standard normal plus b I, diagonally dominant as K3's pivot order makes
+  the blocks getrf hands K5, the last block with a zero pivot at step 7);
+  K6 on (8, 128, 1024) and (4, 128, 2048); K7 in
   fp32 and bf16 at 4096^3 and 300 x 200 x 150; ``inverse(method="lu")``
   and ``inverse(search_bf16=True)`` on the 4096^2 hollow matrix of seed
   1; ``inverse`` on the 20000^2 hollow matrix of seed 20000 (the
@@ -42,8 +42,9 @@ one card. It prints and writes to ``--out`` a JSON record:
   ``slogdet`` on a (64, 128^2) fp32 batch of hollow matrices of seeds
   0 .. 63, ``slogdet`` on the FP64 1024^2 hollow matrix of seed 7 over
   50, and ``lu_factor`` on one fp64 200^2 matrix.
-- ``ms``: each kernel at its main path's shape (``chip_smoke.py`` phase
-  7's) by CUDA events, mean of many calls after a warm-up, and its own
+- ``ms``: each kernel at its main path's shape (the shape its route hands
+  it on the main path's inputs) by CUDA events, mean of many calls after a
+  warm-up, and its own
   kernel's device time per call from ``torch.profiler`` (``*_device``;
   null if the profiler saw none); ``torch.linalg.inv`` beside K1 (at
   (4096, 128^2) and (512, 256^2)) and K4;

@@ -9,7 +9,7 @@ unprofiled call's time on the host clock, the summed device time of its
 kernels in the profiled call, the device's idle share (1 - device time /
 host time; one stream, so kernels do not overlap), and
 the ten top entries by self device time (``key_averages``). The inputs are
-the hollow protocol matrices ``chip_smoke.py`` uses: 4096^2 seed 1 in FP32
+the hollow protocol matrices the on-card tests use: 4096^2 seed 1 in FP32
 and FP64, 20000^2 seed 20000, and the (16, 1024^2) and (8, 2048^2)
 batches (seeds n + i), each batch once per matrix and once through the
 lockstep route (``MATINV_LOCKSTEP=1``). Needs a CUDA device; imports no

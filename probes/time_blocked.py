@@ -2,16 +2,16 @@
 
     PYTHONPATH=. python3 probes/time_blocked.py
 
-Times ``blocked_inverse`` on the hollow 4096^2 matrix of seed 1 (the input
-``chip_smoke.py`` times) with CUDA events, call by call after one
-warm-up: five calls with ``refine=0``, then five refined, then one more
-of each under ``torch.profiler`` for the summed device time of its
-kernels (``*_device_ms``; the rest of a call's time is the device waiting
-on the host) and the refined call's five largest kernels by device time
+Times ``blocked_inverse`` on the hollow 4096^2 matrix of seed 1 (the main
+path's 4096^2 input, as in the on-card tests) with CUDA events, call by call
+after one warm-up: five calls with ``refine=0``, then five refined, then one
+more of each under ``torch.profiler`` for the summed device time of its
+kernels (``*_device_ms``; the rest of a call's time is the device waiting on
+the host) and the refined call's five largest kernels by device time
 (``top``: name, launches, ms). Prints one JSON line: the card's name and
-power limit, the package's file, and those numbers. The package is imported from
-``PYTHONPATH``: name another checkout there to time that tree, and run it
-in two checkouts alternately to compare them on one card. Needs a CUDA
+power limit, the package's file, and those numbers. The package is imported
+from ``PYTHONPATH``: name another checkout there to time that tree, and run
+it in two checkouts alternately to compare them on one card. Needs a CUDA
 device; imports no JAX.
 """
 

@@ -30,11 +30,19 @@ its block alive; dropped answers' blocks serve later calls with no new
 page-locked allocation; a failed page-locked allocation reads back
 pageable.
 
-Tolerances as in ``chip_smoke.py``: pivot sequences identical, ok equal,
-values within 1e-4 of max|twin|; K1, K4 and K5 also elementwise against
-the twin (``_hold_to_twin``), K1's cluster branch byte-identical across
-cluster sizes; K2 bit for bit against its twin on the CPU, K6 against K2
-per matrix and that twin; K7 as its test states.
+Tolerances: pivot sequences identical, ok equal, values within 1e-4 of
+max|twin|; K1, K4 and K5 also elementwise against the twin
+(``_hold_to_twin``), K1's cluster branch byte-identical across cluster
+sizes; K2 bit for bit against its twin on the CPU, K6 against K2 per
+matrix and that twin; K7 as its test states.
+
+Each kernel is held at its callers' shapes, and each path of the public
+API at the shapes the main path and the benchmark use: its kernels'
+launch counts, its residual gate, the plain loops never run
+(``test_path_launches_its_kernels_and_meets_its_gate``); each kernel and
+route bit for bit over poisoned runs (``test_poisoned_runs_are_identical``);
+each compiled route replayed as it runs eagerly, and A, B, A leaving A's
+held result unchanged (``test_replay_equals_eager``).
 """
 
 import numpy as np
@@ -42,7 +50,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from gpu_matrix_inversion_tpu_torch.ops import blocked, fused, lu  # noqa: E402,E501
+import gpu_matrix_inversion_tpu_torch as tpkg  # noqa: E402
+from gpu_matrix_inversion_tpu_torch.ops import (  # noqa: E402
+    blocked, fused, gauss_jordan, lockstep, lu, matmul)
+from gpu_matrix_inversion_tpu_torch.ops.refine import (  # noqa: E402
+    lu_inverse_refined)
 
 pytestmark = pytest.mark.gpu
 
@@ -93,10 +105,17 @@ def _block_values(rng, shape, kind: str) -> np.ndarray:
     if kind == "quarters":
         return (rng.integers(-8, 9, shape) / 4
                 + 1e-3 * rng.standard_normal(shape)).astype(np.float32)
+    if kind == "padded":     # a 300^2 matrix in the identity, as K1 gets it
+        a = np.broadcast_to(np.eye(shape[-1], dtype=np.float32),
+                            shape).copy()
+        a[..., :300, :300] = rng.standard_normal((*shape[:-2], 300, 300))
+        return a
     return rng.standard_normal(shape).astype(np.float32)
 
 
 @pytest.mark.parametrize("bsz,m,pivot,dtype,kind", [
+    (4096, 128, True, torch.float32, "normal"),  # the main path's batch
+    (1, 256, True, torch.float32, "normal"),     # matrix_inv_32 at n = 256
     (8, 128, True, torch.float32, "normal"),     # register branch
     (8, 128, False, torch.float32, "normal"),
     (8, 128, True, torch.bfloat16, "normal"),
@@ -110,11 +129,16 @@ def _block_values(rng, shape, kind: str) -> np.ndarray:
     (1, 640, True, torch.float32, "integers"),
     (2, 384, False, torch.float32, "normal"),
     (2, 512, True, torch.bfloat16, "quarters"),
+    (4, 640, True, torch.float32, "normal"),
+    (1, 384, True, torch.float32, "padded"),
+    (2, 512, False, torch.bfloat16, "normal"),
 ])
 def test_k1_matches_twin(cuda, bsz, m, pivot, dtype, kind):
     """K1 against its twin on the card (pos identical, ok equal, 1e-4) and
     elementwise against the twin on the CPU, on random and tie-heavy
-    inputs (the packed key's tie-break by row)."""
+    inputs (the packed key's tie-break by row). On the main path's 4096
+    matrices the twin takes minutes on the CPU: there the elementwise
+    reference is the twin on the card, as in test_k1_ragged_waves."""
     rng = np.random.default_rng(m + bsz)
     a = _block_values(rng, (bsz, m, m), kind)
     if not pivot:
@@ -127,6 +151,9 @@ def test_k1_matches_twin(cuda, bsz, m, pivot, dtype, kind):
     assert torch.equal(pos_k, pos_t)
     assert torch.equal(ok_k, ok_t) and bool(ok_k.all())
     assert _rel(inv_k, inv_t) <= 1e-4
+    if bsz > 64:
+        _hold_to_twin(inv_k, inv_t)
+        return
     inv_c, pos_c, ok_c = fused.gj_twin(x.cpu(), pivot=pivot)
     assert torch.equal(pos_k.cpu(), pos_c) and torch.equal(ok_k.cpu(), ok_c)
     _hold_to_twin(inv_k, inv_c)
@@ -170,7 +197,8 @@ def test_k1_ragged_waves(cuda, per_sm):
 
 
 @pytest.mark.parametrize("m,b,kb", [(256, 64, 0), (1024, 128, 128),
-                                    (4096, 128, 0)])
+                                    (4096, 128, 0), (4096, 128, 128),
+                                    (16384, 64, 0)])
 def test_k2_matches_twin(cuda, m, b, kb):
     rng = np.random.default_rng(m + b)
     strip = torch.from_numpy(
@@ -326,6 +354,37 @@ def test_cluster_launch_is_checked(cuda):
         cuda_build.check(err, "K2 panel_factor")
 
 
+@pytest.mark.parametrize("kernel,shape", [
+    ("K2", (4096, 128)), ("K2", (16384, 64)), ("K3 fp32", (4096, 128)),
+    ("K3 bf16", (20032, 64)), ("K3 bf16", (65536, 32)),
+    ("K6", (1024, 128)), ("K6", (2048, 128)),
+    ("K1", (256, 1)), ("K1", (256, 512)), ("K1", (384, 1)),
+    ("K1", (384, 64)), ("K1", (512, 1)), ("K1", (640, 64)),
+    ("L1 fp64", (256, 1)), ("L1 fp64", (256, 64)), ("L1 fp64", (511, 1)),
+    ("L4 fp32", (128, 64)), ("L4 fp64", (200, 1))])
+def test_the_card_admits_each_cluster(cuda, kernel, shape):
+    """The cluster kernels at their callers' shapes ((m, b) of a panel;
+    (m, batch) of K1; (n, batch) of L1 and L4): the card holds at least
+    one cluster of the geometry each launches with (the plans raise where
+    it holds none). K6 runs K2's geometry, one cluster a matrix."""
+    from gpu_matrix_inversion_tpu_torch.ops import gauss_jordan
+    if kernel[0] == "K" and kernel != "K1":
+        m, b = shape
+        kind = {"K2": 0, "K6": 0, "K3 fp32": 1, "K3 bf16": 2}[kernel]
+        geo, resident = blocked.cluster_plan(
+            kind, m, b, blocked._factor_geometry(m, b)[0])
+        assert geo.cluster in (2, 4, 8, 16)
+    elif kernel == "K1":
+        geo, resident = fused.cluster_plan(*shape)
+    else:
+        n, bsz = shape
+        dtype = torch.float64 if kernel.endswith("fp64") else torch.float32
+        geo, resident = gauss_jordan.loop_plan(n, bsz, dtype, cuda,
+                                               lu=kernel.startswith("L4"))
+        assert geo.branch == "cluster"
+    assert resident >= 1
+
+
 @pytest.mark.parametrize("b,pivot", [(64, True), (128, True), (32, False)])
 def test_k4_matches_twin(cuda, b, pivot):
     # 256 random blocks, so that row swaps happen at nearly every step of
@@ -341,6 +400,7 @@ def test_k4_matches_twin(cuda, b, pivot):
     inv_t, ok_t = blocked.invert_small_twin(x, pivot=pivot)
     assert ok_k.tolist() == ok_t.tolist() == [True] * 256 + [False]
     assert _rel(inv_k[:-1], inv_t[:-1]) <= 1e-4
+    _hold_to_twin(inv_k[:-1], inv_t[:-1])
 
 
 @pytest.mark.parametrize("kind", ["integers", "quarters"])
@@ -364,26 +424,28 @@ def test_k4_ties_match_twin_on_cpu(cuda, b, pivot, kind):
     _hold_to_twin(inv_k[:2], inv_c[:2])
 
 
+@pytest.mark.parametrize("bsz", [3, 257])
 @pytest.mark.parametrize("b", [128, 64, 40, 8])
-def test_k5_matches_twin(cuda, b):
+def test_k5_matches_twin(cuda, b, bsz):
     """K5 at getrf's b = 128 and at smaller blocks that leave warps, rows
-    and columns of its register layout empty."""
+    and columns of its register layout empty; on 257 blocks, many are in
+    flight at once. The last block has a zero pivot."""
     rng = np.random.default_rng(5 + b)
-    d = rng.standard_normal((3, b, b)).astype(np.float32)
+    d = rng.standard_normal((bsz, b, b)).astype(np.float32)
     d += b * np.eye(b, dtype=np.float32)
-    d[2, 7, :8] = 0.0                      # a zero pivot
+    d[-1, 7, :8] = 0.0                     # a zero pivot
     x = torch.from_numpy(d).to(cuda)
     lu_k, ok_k = lu.small_lu(x)
     lu_t, ok_t = lu.small_lu_twin(x)
-    assert ok_k.tolist() == ok_t.tolist() == [True, True, False]
-    assert _rel(lu_k[:2], lu_t[:2]) <= 1e-4
-    # Elementwise, as chip_smoke.py phase 4c: the twin on the CPU takes the
-    # same operations in the same order, and parts from K5 only where its
-    # float64 emulation of fmaf rounds twice; one skipped update or a
-    # multiplier off by a percent breaks this bound, and a division or an
-    # update that rounds otherwise parts in the bits of far more than one
-    # element in a thousand.
-    got, want = lu_k[:2].cpu(), lu.small_lu_twin(x[:2].cpu())[0]
+    assert ok_k.tolist() == ok_t.tolist() == [True] * (bsz - 1) + [False]
+    assert _rel(lu_k[:-1], lu_t[:-1]) <= 1e-4
+    # Elementwise: the twin on the CPU takes the same operations in the
+    # same order, and parts from K5 only where its float64 emulation of
+    # fmaf rounds twice; one skipped update or a multiplier off by a
+    # percent breaks this bound, and a division or an update that rounds
+    # otherwise parts in the bits of far more than one element in a
+    # thousand.
+    got, want = lu_k[:-1].cpu(), lu.small_lu_twin(x[:-1].cpu())[0]
     assert bool(((got.double() - want.double()).abs()
                  <= 1e-6 * (want.double().abs() + 1)).all())
     differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
@@ -467,6 +529,7 @@ def test_k6_equals_k2_per_matrix(cuda, k, m, case):
 # (m, k, n, base offset of A in elements, stride-pad copies K7 makes in
 # fp32 and in bf16).
 K7_CASES = {
+    "4096x4096x4096": (4096, 4096, 4096, 0, (0, 0)),  # the main path's
     "300x200x150": (300, 200, 150, 0, (1, 1)),       # edge tiles
     "1024x512x768": (1024, 512, 768, 0, (0, 0)),
     "ragged 1000x1001x999": (1000, 1001, 999, 0, (2, 2)),
@@ -585,25 +648,59 @@ def test_lockstep_route_launches_k6(cuda, monkeypatch):
     assert float(res.max()) <= 1e-6
 
 
-def test_ns_and_inverter(cuda):
-    """inverse(method="ns") and Inverter on the card: the JAX package's
-    gates (residual <= 1e-5, ok false on a singular input)."""
+@pytest.mark.parametrize("n", [512, 4096])
+def test_ns_and_inverter(cuda, n):
+    """inverse(method="ns") (also mixed=True) and Inverter on the card: the
+    JAX package's gates (Newton-Schulz residual <= 1e-5, ok false on a
+    singular input; the blocked route polished once <= 1e-6)."""
     from gpu_matrix_inversion_tpu_torch import Inverter, inverse
+    from gpu_matrix_inversion_tpu_torch.models.newton_schulz import (
+        newton_schulz_inverse)
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
         hollow_random_matrix, well_conditioned_matrix)
-    from gpu_matrix_inversion_tpu_torch.utils.residual import (
-        relative_residual)
-    w = well_conditioned_matrix(512, seed=92)
-    x, ok = inverse(torch.from_numpy(w).to(cuda), method="ns")
-    assert bool(ok) and relative_residual(w, x.cpu().numpy()) < 1e-5
-    _, ok = inverse(torch.ones(256, 256, device=cuda), method="ns")
+    w = well_conditioned_matrix(n, seed=92)
+    xw = torch.from_numpy(w).to(cuda)
+    x, ok = inverse(xw, method="ns")
+    assert bool(ok) and _card_residual(w, x) < 1e-5
+    x, ok = newton_schulz_inverse(xw, mixed=True)
+    assert bool(ok) and _card_residual(w, x) < 1e-5
+    _, ok = inverse(torch.ones(n // 2, n // 2, device=cuda), method="ns")
     assert not bool(ok)
-    h = hollow_random_matrix(1024, seed=93)
-    for method in ("blocked", "ns"):
-        src = w if method == "ns" else h
+    h = hollow_random_matrix(max(n, 1024), seed=93)
+    for method, src, gate in (("blocked", h, 1e-6), ("ns", w, 1e-5)):
         x, ok = Inverter(method=method, refine_iters=1).inverse(src)
         assert x.device.type == "cuda"
-        assert bool(ok) and relative_residual(src, x.cpu().numpy()) < 1e-5
+        assert bool(ok) and _card_residual(src, x) < gate
+
+
+@pytest.mark.parametrize("bsz,n,k6", [(16, 1024, 16), (8, 2048, 32),
+                                      (5, 2048, 32)])
+def test_lockstep_route_at_the_gate_shapes(cuda, monkeypatch, bsz, n, k6):
+    """The lockstep route at the JAX package's recorded lockstep shapes
+    (k = 8 at n = 1024: 2 chunks of 8 panels; k = 4 at n = 2048: 2 of 16)
+    and with an odd tail (5 at n = 2048: chunks of 4 and 1): the first
+    call's warm-up launches K6 ``k6`` times and K2 never, the replayed
+    graph holds the panel kernel as often (the profiler's records of a
+    replay: test_lockstep_replay_equals_eager); raw and refined bit for
+    bit the per-matrix route's; refined <= 1e-6, raw <= 1e-4."""
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
+    x = torch.stack([_hollow(cuda, n, n + i) for i in range(bsz)])
+    off, ok_off = inverse(x)
+    off_raw, _ = blocked.blocked_inverse(x, refine=0)
+    monkeypatch.setenv("MATINV_LOCKSTEP", "1")
+    graphs.clear()
+    before = _counts()
+    on, ok_on = inverse(x)
+    assert _grown(before) == {"K6": k6}
+    replayed = inverse(x)[0]
+    assert _nodes(1) == {"K2/K6": k6}
+    on_raw, ok_raw = blocked.blocked_inverse(x, refine=0)
+    _assert_bits(replayed, on)
+    _assert_bits(on, off)
+    _assert_bits(on_raw, off_raw)
+    assert bool(ok_on.all()) and bool(ok_off.all()) and bool(ok_raw.all())
+    assert _card_residual(x, on) <= 1e-6 and _card_residual(x, on_raw) <= 1e-4
 
 
 def test_k1_flags_singular_and_nan(cuda):
@@ -633,29 +730,409 @@ def test_main_path_launches_kernels_and_repeats(cuda):
     assert relative_residual(big_np, first.cpu().numpy()) < 1e-6
 
 
-def _spd(n, seed):
+# --------------------------------------------------------------------------
+# The public API's paths at the main path's and the benchmark's shapes
+# --------------------------------------------------------------------------
+
+
+def _card_residual(a, x) -> float:
+    """utils/residual.py's relative residual ||A X - I||_F / (||A||_F
+    ||X||_F) in float64 on the card, the largest over a batch; ``a`` and
+    ``x`` numpy arrays or tensors, ``x`` possibly flat."""
+    a = torch.as_tensor(a).to("cuda").double()
+    x = torch.as_tensor(x).to("cuda").double().reshape(a.shape)
+    eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+    r = torch.linalg.matrix_norm(a @ x - eye) / (
+        torch.linalg.matrix_norm(a) * torch.linalg.matrix_norm(x))
+    return float(r.max())
+
+
+def _backward_error(a, x, b) -> float:
+    """||A x - b|| / (||A|| ||x||) in float64."""
+    a, x, b = a.double(), x.double(), b.double()
+    return float(torch.linalg.norm(a @ x - b)
+                 / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+
+
+def _hollow(cuda, n, seed, dtype=np.float32):
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    return torch.from_numpy(hollow_random_matrix(n, seed=seed,
+                                                 dtype=dtype)).to(cuda)
+
+
+def _dominant(cuda, n, seed):
+    """An FP64 hollow matrix made diagonally dominant (no pivoting needed)."""
+    h = _hollow(cuda, n, seed, np.float64)
+    return h + 2 * h.abs().sum(dim=1).max() * torch.eye(
+        n, dtype=torch.float64, device=cuda)
+
+
+def _rhs(cuda, n, k, seed=16, dtype=torch.float32):
     rng = np.random.default_rng(seed)
-    g = rng.standard_normal((n, n))
-    return (g @ g.T / n + np.eye(n)).astype(np.float32)
+    return torch.from_numpy(rng.standard_normal((n, k))).to(dtype).to(cuda)
 
 
-def test_potri_on_card(cuda):
-    """potri at 1024^2 under the residual gate chip_smoke.py holds at
-    4096^2 (1e-6), bit-identical through inverse(method="cholesky"); one
-    diagonal entry set to -50 gives ok False, no exception."""
-    from gpu_matrix_inversion_tpu_torch import cholesky_inverse, inverse
+PATHS = {}
+
+
+def _path(name, **want):
+    """Register ``make(cuda) -> (call, check)`` as the path ``name``, with
+    the launches ``call()`` must make of each kernel named in ``want``;
+    ``check`` holds its output to the path's gate."""
+    def register(make):
+        PATHS[name] = (make, want)
+        return make
+    return register
+
+
+def _flat(n, seed, gate, fn="matrix_inv_32", dtype=np.float32, pivot=True):
+    """A flat API call on a hollow n^2 matrix (diagonally dominant without
+    pivoting), its residual within ``gate``."""
+    def make(cuda):
+        from gpu_matrix_inversion_tpu_torch import api
+        a = (_hollow(cuda, n, seed, dtype) if pivot
+             else _dominant(cuda, n, seed))
+        flat = a.cpu().numpy().reshape(-1)
+        del a
+
+        def check(out):
+            assert out.size == n * n
+            assert _card_residual(flat.reshape(n, n), out) <= gate
+        return lambda: getattr(api, fn)(flat, n, device="cuda"), check
+    return make
+
+
+_path("matrix_inv_32 256^2 (fused)", K1=1)(_flat(256, 256, 1e-5))
+_path("matrix_inv_32 4096^2 (blocked, refined)", K2=32)(_flat(4096, 1, 1e-6))
+# The input on which an XLA:TPU rewrite of the refine step once cost the
+# JAX package three orders of magnitude in residual.
+_path("matrix_inv_32 1950^2 seed 1950", K2=16)(
+    _flat(1950, 1950, 1e-7))
+_path("matrix_inv_32 20000^2 (split: K3 on bf16 strips, K4)", K3=313,
+      K4=313, K2=0)(_flat(20000, 20000, 1e-6))
+_path("matrix_inversion_fp64 4096^2 (K3's f32-search tier)", K3=16, L1=16,
+      L2=0)(_flat(4096, 1, 1e-12, "matrix_inversion_fp64", np.float64))
+_path("matrix_inversion_fp64 8192^2 (logical tier)", L1=32, L2=32, K3=0)(
+    _flat(8192, 3, 1e-12, "matrix_inversion_fp64", np.float64))
+_path("matrix_inversion_no_pivots 1024^2", L1=4, L2=4, K3=0)(
+    _flat(1024, 5, 1e-12, "matrix_inversion_no_pivots", pivot=False))
+_path("matrix_inversion_no_pivots 4096^2", L1=16, L2=16, K3=0)(
+    _flat(4096, 6, 1e-12, "matrix_inversion_no_pivots", pivot=False))
+
+
+@_path("inverse (4096, 128^2) (fused)", K1=1)
+def _fused_batch(cuda):
+    from gpu_matrix_inversion_tpu_torch import inverse
+    batch = np.random.default_rng(4096).uniform(
+        0.0, 100.0, (4096, 128, 128)).astype(np.float32)
+    batch[:, np.arange(128), np.arange(128)] = 0.0      # hollow
+    x = torch.from_numpy(batch).to(cuda)
+
+    def check(out):
+        inv, ok = out
+        assert bool(ok.all()) and bool(torch.isfinite(inv).all())
+        assert _card_residual(x, inv) <= 1e-5
+    return lambda: inverse(x), check
+
+
+@_path("blocked_inverse 4096^2 raw", K2=32)
+def _blocked_raw(cuda):
+    x = _hollow(cuda, 4096, 1)
+
+    def check(out):
+        assert bool(out[1]) and _card_residual(x, out[0]) <= 1e-4
+    return lambda: blocked.blocked_inverse(x, refine=0), check
+
+
+@_path("inverse (64, 256^2) FP64 (spec)", L1=1, L2=0, K3=0)
+def _spec_batch(cuda):
+    from gpu_matrix_inversion_tpu_torch import inverse
+    x = torch.stack([_hollow(cuda, 256, s, np.float64) for s in range(64)])
+
+    def check(out):
+        assert bool(out[1].all()) and _card_residual(x, out[0]) <= 1e-12
+    return lambda: inverse(x), check
+
+
+@_path("blocked_inverse 4096^2 bf16 search, raw", K3=32, K4=32)
+def _bf16_raw(cuda):
+    x = _hollow(cuda, 4096, 1)
+
+    def check(out):
+        assert bool(out[1]) and _card_residual(x, out[0]) <= 1e-4
+    return (lambda: blocked.blocked_inverse(x, search_bf16=True, refine=0),
+            check)
+
+
+@_path("inverse 4096^2 bf16 search, refined", K3=32, K4=32)
+def _bf16_refined(cuda):
+    from gpu_matrix_inversion_tpu_torch import inverse
+    x = _hollow(cuda, 4096, 1)
+
+    def check(out):
+        assert bool(out[1]) and _card_residual(x, out[0]) <= 1e-6
+    return lambda: inverse(x, search_bf16=True), check
+
+
+@_path("inverse(method='lu') 4096^2", K3=32, K5=32)
+def _lu_getri(cuda):
+    from gpu_matrix_inversion_tpu_torch import inverse
+    x = _hollow(cuda, 4096, 1)
+
+    def check(out):
+        assert bool(out[1]) and _card_residual(x, out[0]) <= 1e-5
+    return lambda: inverse(x, method="lu"), check
+
+
+@_path("inverse(method='lu') FP64 4096^2 (L3 panels)", L3=32, K3=0, K5=0)
+def _lu_getri64(cuda):
+    from gpu_matrix_inversion_tpu_torch import inverse
+    x = _hollow(cuda, 4096, 1, np.float64)
+
+    def check(out):
+        assert bool(out[1]) and _card_residual(x, out[0]) <= 1e-12
+    return lambda: inverse(x, method="lu"), check
+
+
+def _solve(dtype, gate, **kwargs):
+    def make(cuda):
+        from gpu_matrix_inversion_tpu_torch import solve
+        x = _hollow(cuda, 4096, 1, dtype)
+        rhs = _rhs(cuda, 4096, 16, dtype=x.dtype)
+
+        def check(out):
+            assert bool(out[1])
+            assert _backward_error(x, out[0], rhs) <= gate
+        return lambda: solve(x, rhs, **kwargs), check
+    return make
+
+
+_path("solve 4096^2 x 16", K3=32, K5=32)(
+    _solve(np.float32, 1e-5))
+_path("solve FP64 4096^2 x 16 (L3 panels)", L3=32, K3=0, K5=0)(
+    _solve(np.float64, 1e-12, method="lu"))
+_path("solve 4096^2 x 16, refine_iters=2 (L5 a step)", K3=32, K5=32,
+      L5=2)(
+    _solve(np.float32, 1e-5, method="lu", refine_iters=2))
+
+
+def _slogdet(dtype, rtol):
+    def make(cuda):
+        from gpu_matrix_inversion_tpu_torch import slogdet
+        x = _hollow(cuda, 1024, 7, dtype) / 50
+
+        def check(out):
+            sign, logabs, ok = out
+            want_sign, want_log = np.linalg.slogdet(x.double().cpu().numpy())
+            assert bool(ok) and float(sign) == want_sign
+            assert abs(float(logabs) - want_log) <= rtol * abs(want_log)
+        return lambda: slogdet(x), check
+    return make
+
+
+_path("slogdet 1024^2", K3=8, K5=8)(_slogdet(np.float32, 1e-4))
+_path("slogdet FP64 1024^2 (L3 panels)", L3=8, K3=0, K5=0)(
+    _slogdet(np.float64, 1e-10))
+
+
+@_path("lu_inverse_refined 4096^2, cond 1e4", L4=1, L5=1)
+def _lu_refined(cuda):
+    from gpu_matrix_inversion_tpu_torch.ops.refine import lu_inverse_refined
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        ill_conditioned_matrix)
+    x = torch.from_numpy(ill_conditioned_matrix(
+        4096, cond=1e4, seed=55, dtype=np.float64)).to(cuda)
+
+    def check(out):
+        raw, ok_raw = lu.lu_inverse(x.float())
+        r, r_raw = _card_residual(x, out[0]), _card_residual(x, raw)
+        assert bool(out[1]) and bool(ok_raw)
+        assert r < 1e-10 and r < r_raw / 10
+    return (lambda: lu_inverse_refined(x, iters=4,
+                                       residual_dtype=torch.float64), check)
+
+
+def _lu_batch(cuda):
+    return torch.stack([_hollow(cuda, 128, s) for s in range(64)])
+
+
+@_path("inverse(method='lu') (64, 128^2) (spec)", L4=1, L5=1)
+def _lu_spec_batch(cuda):
+    from gpu_matrix_inversion_tpu_torch import inverse
+    x = _lu_batch(cuda)
+
+    def check(out):
+        assert bool(out[1].all()) and _card_residual(x, out[0]) <= 1e-5
+    return lambda: inverse(x, method="lu"), check
+
+
+@_path("slogdet (64, 128^2) (spec)", L4=1)
+def _slogdet_batch(cuda):
+    from gpu_matrix_inversion_tpu_torch import slogdet
+    x = _lu_batch(cuda)
+
+    def check(out):
+        sign, logabs, ok = out
+        want_sign, want_log = np.linalg.slogdet(x.double().cpu().numpy())
+        assert bool(ok.all())
+        assert np.array_equal(sign.cpu().numpy(), want_sign)
+        assert (np.abs(logabs.cpu().numpy() - want_log).max()
+                <= 1e-4 * np.abs(want_log).max())
+    return lambda: slogdet(x), check
+
+
+@_path("K7 as the verification GEMM of the raw 4096^2 inverse", K7=1)
+def _verification_gemm(cuda):
+    """A @ X through K7 in fp32; the residual from it agrees with
+    utils/residual.py's float64 one within 1% (fp32 rounding of A X adds
+    about u / sqrt(n) of ||A|| ||X||, far below the raw residual)."""
+    from gpu_matrix_inversion_tpu_torch.ops import matmul
     from gpu_matrix_inversion_tpu_torch.utils.residual import (
         relative_residual)
-    a = _spd(1024, seed=1024)
-    x = torch.from_numpy(a).to(cuda)
+    x = _hollow(cuda, 4096, 1)
+    raw, _ = blocked.blocked_inverse(x, refine=0)
+
+    def check(prod):
+        eye = torch.eye(4096, dtype=torch.float64, device=cuda)
+        r_k7 = float(torch.linalg.matrix_norm(prod.double() - eye)
+                     / (torch.linalg.matrix_norm(x.double())
+                        * torch.linalg.matrix_norm(raw.double())))
+        want = relative_residual(x.cpu().numpy(), raw.cpu().numpy())
+        assert abs(r_k7 - want) <= 1e-2 * want
+    return lambda: matmul.tiled_matmul(x, raw), check
+
+
+@_path("Inverter(method='blocked', refine_iters=1) 4096^2", K2=32)
+def _inverter_blocked(cuda):
+    from gpu_matrix_inversion_tpu_torch import Inverter
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    a = hollow_random_matrix(4096, seed=1)
+
+    def check(out):
+        assert bool(out[1]) and _card_residual(a, out[0]) <= 1e-6
+    return (lambda: Inverter(method="blocked", refine_iters=1).inverse(a),
+            check)
+
+
+def _twins() -> tuple:
+    """The plain loops L1 to L5 stand in for on the CPU, counted by calls."""
+    from gpu_matrix_inversion_tpu_torch.ops import gauss_jordan
+    return (gauss_jordan.gauss_jordan_twin, blocked.logical_panel_twin,
+            lu.lu_panel_twin, lu.lu_factor_twin, lu.lu_solve_twin)
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_path_launches_its_kernels_and_meets_its_gate(cuda, path):
+    """Each path of the public API on the card at the main path's and the
+    benchmark's shapes, its first call from an empty graph cache (whose
+    eager warm-up the wrappers count): it launches its kernels as often
+    as its panels ask (and some kernels not at all), runs none of the
+    plain loops L1 to L5 replace, and meets its residual gate."""
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
+    make, want = PATHS[path]
+    call, check = make(cuda)
+    twins = _twins()
+    for t in twins:
+        t.calls = 0
+    graphs.clear()
+    before = _counts()
+    out = call()
+    torch.cuda.synchronize()
+    grown = _grown(before)
+    assert {k: grown.get(k, 0) for k in want} == want, grown
+    assert not any(t.calls for t in twins)
+    check(out)
+
+
+@pytest.mark.parametrize("probe", [
+    "order 0", "non-square length", "all-ones singular", "NaN input",
+    "no pivot on a zero diagonal"])
+def test_flat_api_returns_empty_on_the_card(cuda, probe):
+    """The flat API's contract on the card: an input it cannot invert
+    gives an empty array, never an exception."""
+    from gpu_matrix_inversion_tpu_torch import (
+        matrix_inv_32, matrix_inversion_no_pivots)
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        hollow_random_matrix)
+    nan_in = hollow_random_matrix(64, seed=3)
+    nan_in[5, 7] = np.nan
+    fn, flat, order = {
+        "order 0": (matrix_inv_32, [1.0, 2.0, 3.0, 4.0], 0),
+        "non-square length": (matrix_inv_32, [1.0, 2.0, 3.0], 2),
+        "all-ones singular": (matrix_inv_32, np.ones(64 * 64, np.float32),
+                              64),
+        "NaN input": (matrix_inv_32, nan_in.reshape(-1), 64),
+        "no pivot on a zero diagonal": (
+            matrix_inversion_no_pivots, hollow_random_matrix(
+                1024, seed=5, dtype=np.float64).reshape(-1), 1024),
+    }[probe]
+    assert fn(flat, order, device="cuda").size == 0
+
+
+def _spd(cuda, n, seed, batch=()):
+    """G G^T / n + I (G standard normal from ``seed``; condition number at
+    most 5), the product in float64 on the card, cast to fp32."""
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (*batch, n, n))).to(cuda)
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    return (g @ g.mT / n + eye).float()
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 8192])
+def test_potri_on_card(cuda, n):
+    """potri under the SPD tier's residual gate (1e-6), bit-identical
+    through inverse(method="cholesky") and with a random upper triangle
+    (only the lower is read); one diagonal entry set to -50 gives ok
+    False, no exception."""
+    from gpu_matrix_inversion_tpu_torch import cholesky_inverse, inverse
+    x = _spd(cuda, n, seed=n)
     inv, ok = cholesky_inverse(x)
-    assert bool(ok) and relative_residual(a, inv.cpu().numpy()) <= 1e-6
+    assert bool(ok) and _card_residual(x, inv) <= 1e-6
     inv2, ok2 = inverse(x, method="cholesky")
     assert bool(ok2) and torch.equal(inv, inv2)
+    junk = x + torch.triu(torch.empty_like(x).uniform_(-50.0, 50.0), 1)
+    inv3, ok3 = cholesky_inverse(junk)
+    assert bool(ok3) and torch.equal(inv, inv3)
     bad = x.clone()
     bad[517, 517] = -50.0
     _, ok_bad = cholesky_inverse(bad)
     assert not bool(ok_bad)
+
+
+def test_cholesky_route_on_card(cuda):
+    """The rest of the Cholesky route at 4096^2: potrf within 1e-5
+    (relative Frobenius) of float64 numpy; solve(refine_iters=1) within
+    1e-5 in backward error, its x unchanged by a junk upper triangle;
+    Inverter(method="cholesky", refine_iters=1) <= 1e-6; an (8, 512^2)
+    batch, each member <= 1e-6; an indefinite input gives ok false from
+    potrf and potri and an empty vector from the flat API."""
+    from gpu_matrix_inversion_tpu_torch import (
+        Inverter, api, cholesky_factor, cholesky_inverse, solve)
+    x = _spd(cuda, 4096, seed=4096)
+    low, ok = cholesky_factor(x)
+    want = np.linalg.cholesky(x.double().cpu().numpy())
+    assert bool(ok) and (np.linalg.norm(low.double().cpu().numpy() - want)
+                         <= 1e-5 * np.linalg.norm(want))
+    rhs = _rhs(cuda, 4096, 16)
+    sol, ok = solve(x, rhs, method="cholesky", refine_iters=1)
+    assert bool(ok) and _backward_error(x, sol, rhs) <= 1e-5
+    junk = x + torch.triu(torch.empty_like(x).uniform_(-50.0, 50.0), 1)
+    sol_j, _ = solve(junk, rhs, method="cholesky", refine_iters=1)
+    assert torch.equal(sol_j, sol)
+    inv, ok = Inverter(method="cholesky", refine_iters=1).inverse(x)
+    assert bool(ok) and _card_residual(x, inv) <= 1e-6
+    batch = _spd(cuda, 512, seed=512, batch=(8,))
+    inv_b, ok_b = cholesky_inverse(batch)
+    assert bool(ok_b.all()) and _card_residual(batch, inv_b) <= 1e-6
+    bad = _spd(cuda, 1024, seed=1024)
+    bad[517, 517] = -50.0
+    assert not bool(cholesky_inverse(bad)[1])
+    assert not bool(cholesky_factor(bad)[1])
+    flat = api._invert_flat(bad.cpu().numpy().reshape(-1), 1024, np.float32,
+                            pivot=True, device="cuda", method="cholesky")
+    assert flat.size == 0
 
 
 def test_allocator_poison_control(cuda):
@@ -671,7 +1148,7 @@ def test_allocator_poison_control(cuda):
     identical, _ = determinism.check_deterministic(
         lambda: torch.empty(1 << 22, device=cuda), runs=3)
     assert not identical
-    x = torch.from_numpy(_spd(256, seed=3)).to(cuda)
+    x = _spd(cuda, 256, seed=3)
     assert determinism.check_deterministic(lambda t: t @ t, x, runs=3)[0]
     held = torch.empty(3 << 20, dtype=torch.uint8, device=cuda)
     del held
@@ -691,6 +1168,172 @@ def test_shared_memory_poison_reaches_every_sm(cuda):
     assert sms == props.multi_processor_count
     assert smem >= 227 * 1024
     assert determinism.poison_shared_memory.launches == before + 1
+
+
+def _normal(cuda, *shape, dtype=torch.float32):
+    rng = np.random.default_rng(sum(shape))
+    return torch.from_numpy(rng.standard_normal(shape)).to(dtype).to(cuda)
+
+
+def _sharded_4096(cuda):
+    from gpu_matrix_inversion_tpu_torch import parallel
+    x, mesh = _hollow(cuda, 4096, 1), parallel.make_device_mesh(1, ("x",))
+    return lambda: parallel.sharded_blocked_inverse(x, mesh=mesh)
+
+
+def _sharded_dp_only(cuda):
+    from gpu_matrix_inversion_tpu_torch import parallel
+    x = _normal(cuda, 4096, 128, 128)
+    mesh = parallel.make_device_mesh((1, 1), ("dp", "tp"))
+    return lambda: parallel.sharded_batched_inverse(x, mesh=mesh)
+
+
+def _call(fn, *makers, **kwargs):
+    """make(cuda) of ``fn`` called on the inputs the makers give (each
+    ``maker(cuda)``), then on the arguments that are not tensors."""
+    def make(cuda):
+        inputs = [m(cuda) for m in makers]
+        return lambda: fn(*inputs, **kwargs)
+    return make
+
+
+def _shape(*shape, dtype=torch.float32):
+    return lambda cuda: _normal(cuda, *shape, dtype=dtype)
+
+
+def _mask(*shape):
+    """An empty used-row mask."""
+    return lambda cuda: torch.zeros(shape, dtype=torch.int32, device=cuda)
+
+
+def _h(n, seed, dtype=np.float32):
+    return lambda cuda: _hollow(cuda, n, seed, dtype)
+
+
+def _zero(cuda):
+    return 0
+
+
+def _l5(rhs):
+    """make(cuda) of L5 on L4's factor of a hollow 4096^2 matrix."""
+    def make(cuda):
+        fac, perm, _ = lu._lu_factor_batched(_hollow(cuda, 4096, 1)[None],
+                                             pivot=True)
+        b = rhs(cuda)
+        return lambda: lu._lu_solve_batched(fac, perm, b)
+    return make
+
+
+def _well_conditioned(cuda):
+    from gpu_matrix_inversion_tpu_torch.utils.generators import (
+        well_conditioned_matrix)
+    return torch.from_numpy(well_conditioned_matrix(4096, seed=4096)).to(cuda)
+
+
+# Each kernel at its main path's shape, then each route: (runs, make(cuda)
+# -> the call). The split and the FP64 routes, and L4's grid branch, take
+# two runs. The sharded calls run on a world of one rank over NCCL, the
+# lockstep call with MATINV_LOCKSTEP=1.
+_F64 = torch.float64
+_BF16 = torch.bfloat16
+POISONED = {
+    "K1 (4096, 128^2)": (3, _call(fused.gj_kernel, _shape(4096, 128, 128),
+                                  pivot=True)),
+    "K1 (512, 256^2)": (3, _call(fused.gj_kernel, _shape(512, 256, 256),
+                                 pivot=True)),
+    "K2 (4096, 128)": (3, _call(blocked.panel_factor, _shape(128, 4096),
+                                _zero, _mask(4096), pivot=True)),
+    "K3 (20032, 64) bf16": (3, _call(blocked.pivot_search,
+                                     _shape(64, 20032, dtype=_BF16),
+                                     _mask(20032))),
+    "K4 b=128 x 256": (3, _call(blocked.invert_small, _shape(256, 128, 128),
+                                pivot=True)),
+    "K5 b=128 x 256": (3, _call(lu.small_lu, lambda cuda: _normal(
+        cuda, 256, 128, 128) + 128 * torch.eye(128, device=cuda))),
+    "K6 k=8 (1024, 128)": (3, _call(lockstep.lockstep_factor,
+                                    _shape(8, 128, 1024), _zero,
+                                    _mask(8, 1024), pivot=True)),
+    "K7 4096^3 fp32": (3, _call(matmul.tiled_matmul, _shape(4096, 4096),
+                                _shape(4096, 4096))),
+    "K7 4096^3 bf16": (3, _call(matmul.tiled_matmul,
+                                _shape(4096, 4096, dtype=_BF16),
+                                _shape(4096, 4096, dtype=_BF16))),
+    "L1 (64, 256^2) fp64": (3, _call(gauss_jordan._gauss_jordan_aug,
+                                     _shape(64, 256, 256, dtype=_F64),
+                                     pivot=True)),
+    "L1 (1, 1000^2) fp64 (grid branch)": (3, _call(
+        gauss_jordan._gauss_jordan_aug, _shape(1, 1000, 1000, dtype=_F64),
+        pivot=True)),
+    "L2 (8192, 256) fp64": (3, _call(blocked._panel_pivots_logical,
+                                     _shape(8192, 256, dtype=_F64),
+                                     _mask(8192), _zero, b=256, pivot=True)),
+    "L3 (4096, 128) fp64": (3, _call(lu._lu_panel,
+                                     _shape(4096, 128, dtype=_F64),
+                                     _mask(4096), _zero, b=128, pivot=True)),
+    "L4 (64, 128^2) fp32": (3, _call(lu._lu_factor_batched,
+                                     _shape(64, 128, 128), pivot=True)),
+    "L4 (1, 4096^2) fp32 (grid branch)": (2, _call(
+        lu._lu_factor_batched, lambda cuda: _hollow(cuda, 4096, 1)[None],
+        pivot=True)),
+    "L5 (1, 4096^2) k = 16": (3, _l5(lambda cuda: _rhs(cuda, 4096,
+                                                       16)[None])),
+    "L5 (1, 4096^2) k = 4096": (3, _l5(
+        lambda cuda: torch.eye(4096, device=cuda)[None])),
+    "fused inverse (4096, 128^2)": (3, _call(tpkg.inverse,
+                                             _shape(4096, 128, 128))),
+    "blocked 4096^2 refined": (3, _call(tpkg.inverse, _h(4096, 1))),
+    "bf16 search 4096^2": (3, _call(tpkg.inverse, _h(4096, 1),
+                                    search_bf16=True)),
+    "split 20000^2": (2, _call(tpkg.inverse, _h(20000, 20000))),
+    "FP64 4096^2": (2, _call(tpkg.inverse, _h(4096, 1, np.float64))),
+    "FP64 8192^2": (2, _call(tpkg.inverse, _h(8192, 3, np.float64))),
+    "no-pivot FP64 4096^2": (2, _call(
+        tpkg.inverse, lambda cuda: _dominant(cuda, 4096, 6), pivot=False)),
+    "spec FP64 (64, 256^2)": (3, _call(tpkg.inverse,
+                                       _shape(64, 256, 256, dtype=_F64))),
+    "LU getri 4096^2": (3, _call(tpkg.inverse, _h(4096, 1), method="lu")),
+    "FP64 LU getri 4096^2": (2, _call(tpkg.inverse, _h(4096, 1, np.float64),
+                                      method="lu")),
+    "LU solve 4096^2 x 16": (3, _call(tpkg.solve, _h(4096, 1),
+                                      lambda cuda: _rhs(cuda, 4096, 16))),
+    "LU solve 4096^2 x 16, refine_iters=2": (3, _call(
+        tpkg.solve, _h(4096, 1), lambda cuda: _rhs(cuda, 4096, 16),
+        method="lu", refine_iters=2)),
+    "lu_inverse_refined 4096^2": (2, _call(
+        lu_inverse_refined, _h(4096, 1, np.float64), iters=4,
+        residual_dtype=_F64)),
+    "LU spec inverse (64, 128^2)": (3, _call(tpkg.inverse, _lu_batch,
+                                             method="lu")),
+    "lockstep (16, 1024^2)": (3, _call(tpkg.inverse, lambda cuda: torch.stack(
+        [_hollow(cuda, 1024, 1024 + i) for i in range(16)]))),
+    "Newton-Schulz 4096^2": (3, _call(tpkg.inverse, _well_conditioned,
+                                      method="ns")),
+    "Cholesky potri 4096^2": (3, _call(
+        tpkg.cholesky_inverse, lambda cuda: _spd(cuda, 4096, 4096))),
+    "sharded 4096^2 (NCCL, 1-D mesh)": (3, _sharded_4096),
+    "sharded dp-only (4096, 128^2) (NCCL, (1, 1) mesh)": (3, _sharded_dp_only),
+}
+
+
+@pytest.mark.parametrize("case", list(POISONED))
+def test_poisoned_runs_are_identical(cuda, request, monkeypatch, case):
+    """check_deterministic with the caching allocator's free blocks, the
+    graphs' pool and every SM's shared memory filled with 0xFF before each
+    run after the first (a read of scratch, output or shared memory before
+    it is written then drifts), over each kernel K1 to K7 and L1 to L5 and
+    each route: the first, eager run and the captured and replayed ones
+    bit-identical, and shared memory poisoned before every repeat."""
+    from gpu_matrix_inversion_tpu_torch.utils import determinism
+    runs, make = POISONED[case]
+    if case.startswith("sharded"):
+        request.getfixturevalue("nccl_world")
+    if case.startswith("lockstep"):
+        monkeypatch.setenv("MATINV_LOCKSTEP", "1")
+    call = make(cuda)
+    before = determinism.poison_shared_memory.launches
+    same, diff = determinism.check_deterministic(call, runs=runs)
+    assert same, diff
+    assert determinism.poison_shared_memory.launches - before == runs - 1
 
 
 def test_measure_phases_adds_up_on_card(cuda):
@@ -723,7 +1366,7 @@ def test_measure_phases_adds_up_on_card(cuda):
 def test_trace_records_cuda_activity(cuda, tmp_path):
     from gpu_matrix_inversion_tpu_torch import inverse
     from gpu_matrix_inversion_tpu_torch.utils.profiling import trace
-    x = torch.from_numpy(_spd(512, seed=5)).to(cuda)
+    x = _spd(cuda, 512, seed=5)
     with trace(tmp_path, device=cuda):
         inverse(x, method="blocked")
     files = list(tmp_path.glob("*.pt.trace.json"))
@@ -787,15 +1430,65 @@ def test_sharded_4096_equals_blocked_bit_for_bit(cuda, nccl_world):
     assert relative_residual(a, inv.cpu().numpy()) <= 1e-6
 
 
-def test_sharded_dp_only_batch_equals_fused(cuda, nccl_world):
+def test_sharded_split_equals_blocked_bit_for_bit(cuda, nccl_world):
+    """World size 1 over NCCL at 20000^2 (the split geometry: b = 64,
+    group 24, 14 groups): bit for bit ``blocked_inverse`` at group 24; K3
+    and K4 run, and 16 collectives (14 strips, the slot gather, the ok
+    reduction); refined residual <= 1e-6."""
+    from gpu_matrix_inversion_tpu_torch.parallel import (
+        make_device_mesh, sharded, sharded_blocked_inverse)
+    mesh = make_device_mesh(1, ("x",))
+    x = _hollow(cuda, 20000, 20000)
+    before, calls = _counts(), sharded.collective.calls
+    inv, ok = sharded_blocked_inverse(x, mesh=mesh)
+    assert _grown(before) == {"K3": 313, "K4": 313}
+    assert sharded.collective.calls - calls == 16
+    want, ok_b = blocked.blocked_inverse(x, group_size=24)
+    assert bool(ok) and bool(ok_b)
+    assert torch.equal(inv.view(torch.int32), want.view(torch.int32))
+    assert _card_residual(x, inv) <= 1e-6
+
+
+def test_auto_routes_32768_to_sharded(cuda, nccl_world):
+    """With a mesh, ``inverse`` routes a 32768^2 matrix (past the blocked
+    route's reach on one card) to the sharded route (b = 64, group 24: 21
+    groups and a tail of 8, 512 panels): 512 K3 and 512 K4 launches, 24
+    collectives, refined residual <= 1e-6 (in float64 on the card, a
+    column block at a time)."""
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.models import solver
+    from gpu_matrix_inversion_tpu_torch.parallel import (
+        make_device_mesh, sharded)
+    mesh = make_device_mesh(1, ("x",))
+    n = 32768
+    x = _hollow(cuda, n, n)
+    assert solver._resolve("auto", x, mesh) == "sharded"
+    before, calls = _counts(), sharded.collective.calls
+    inv, ok = inverse(x, mesh=mesh)
+    assert _grown(before) == {"K3": 512, "K4": 512}
+    assert sharded.collective.calls - calls == 24
+    assert bool(ok)
+    sq, a64 = 0.0, x.double()
+    for j in range(0, n, 4096):
+        blk = a64 @ inv[:, j:j + 4096].double()
+        blk[j:j + 4096].diagonal().sub_(1.0)
+        sq += float((blk * blk).sum())
+        del blk
+    assert sq ** 0.5 <= 1e-6 * (
+        float(torch.linalg.vector_norm(x, dtype=torch.float64))
+        * float(torch.linalg.vector_norm(inv, dtype=torch.float64)))
+
+
+@pytest.mark.parametrize("bsz", [64, 4096])
+def test_sharded_dp_only_batch_equals_fused(cuda, nccl_world, bsz):
     """A (1, 1) (dp, tp) cuda mesh with n <= 640 runs K1 on the local
-    batch: bit for bit ``fused_inverse``; a singular member's ok alone
-    false."""
+    batch (up to the main path's 4096 matrices): bit for bit
+    ``fused_inverse``; a singular member's ok alone false."""
     from gpu_matrix_inversion_tpu_torch.parallel import (
         make_device_mesh, sharded_batched_inverse)
     mesh = make_device_mesh((1, 1), ("dp", "tp"))
     rng = np.random.default_rng(11)
-    x = torch.from_numpy(rng.standard_normal((64, 128, 128)).astype(
+    x = torch.from_numpy(rng.standard_normal((bsz, 128, 128)).astype(
         np.float32)).to(cuda)
     x[5] = 1.0
     k1 = fused.gj_kernel.launches
@@ -941,55 +1634,86 @@ def _at_most(recorded: dict, want: dict) -> bool:
 
 
 def _route_calls(cuda):
-    """Each compiled route at a small shape: (name, function name in
-    graphs.stats(), call)."""
+    """Each compiled route at a small shape: (name, the compiled functions
+    it calls, by their names in graphs.stats(), the call on an input A, the
+    call on an input B of the same signature)."""
     from gpu_matrix_inversion_tpu_torch import (cholesky_inverse, inverse,
                                                 solve)
     from gpu_matrix_inversion_tpu_torch.utils.generators import (
-        hollow_random_matrix, well_conditioned_matrix)
+        well_conditioned_matrix)
     rng = np.random.default_rng(11)
-    h = torch.from_numpy(hollow_random_matrix(1024, seed=5)).to(cuda)
-    h64 = torch.from_numpy(hollow_random_matrix(512, seed=6,
-                                                dtype=np.float64)).to(cuda)
-    dom = h64 + 2 * h64.abs().sum(dim=1).max() * torch.eye(
-        512, dtype=torch.float64, device=cuda)
-    small64 = torch.from_numpy(hollow_random_matrix(
-        128, seed=7, dtype=np.float64)).to(cuda)
-    batch = torch.from_numpy(np.stack([
-        hollow_random_matrix(1024, seed=20 + i) for i in range(3)])).to(cuda)
-    spd = torch.from_numpy(_spd(512, seed=8)).to(cuda)
-    wc = torch.from_numpy(well_conditioned_matrix(512, seed=9)).to(cuda)
-    rhs = torch.from_numpy(rng.standard_normal((1024, 4)).astype(
-        np.float32)).to(cuda)
-    small = torch.from_numpy(np.stack([
-        hollow_random_matrix(128, seed=30 + i) for i in range(16)])).to(cuda)
-    small_rhs = torch.from_numpy(rng.standard_normal((16, 128, 3)).astype(
-        np.float32)).to(cuda)
-    lu_s, perm_s, _ = lu._lu_factor_batched(small, pivot=True)
-    return {
-        "blocked": ("blocked_inverse", lambda: inverse(h)),
-        "bf16 search": ("blocked_inverse",
-                        lambda: inverse(h, search_bf16=True)),
-        "FP64 tier": ("blocked_inverse", lambda: inverse(h64)),
-        "no-pivot FP64": ("blocked_inverse",
-                          lambda: inverse(dom, pivot=False)),
-        "per-matrix batch": ("blocked_inverse", lambda: inverse(batch)),
-        "LU getri": ("lu_inverse_fast", lambda: inverse(h, method="lu")),
-        "LU solve": ("lu_solve_fast", lambda: solve(h, rhs)),
-        "potri": ("cholesky_inverse", lambda: cholesky_inverse(spd)),
-        "Cholesky solve": ("cholesky_solve",
-                           lambda: solve(spd, rhs[:512], method="cholesky")),
-        "Newton-Schulz": ("newton_schulz_inverse",
-                          lambda: inverse(wc, method="ns")),
-        "spec": ("gauss_jordan_inverse", lambda: inverse(small64)),
-        "LU spec getrf": ("lu_factor", lambda: lu.lu_factor(small)),
-        "LU spec getrs": ("lu_solve",
-                          lambda: lu.lu_solve(lu_s, perm_s, small_rhs)),
-        "LU spec getri": ("lu_inverse", lambda: lu.lu_inverse(small)),
-        "LU spec solve": ("lu_solve_matrix",
-                          lambda: lu.lu_solve_matrix(small, small_rhs)),
-        "slogdet FP64 (L3 panels)": ("slogdet", lambda: lu.slogdet(h64)),
+
+    def pair(make):
+        return make(0), make(1)
+
+    h = pair(lambda i: _hollow(cuda, 1024, 5 + 50 * i))
+    h64 = pair(lambda i: _hollow(cuda, 512, 6 + 60 * i, np.float64))
+    k64 = pair(lambda i: _hollow(cuda, 1024, 7 + 70 * i, np.float64))
+    x8k = pair(lambda i: _hollow(cuda, 8192, 4 + 40 * i, np.float64))
+    dom = pair(lambda i: _dominant(cuda, 512, 6 + 60 * i))
+    small64 = pair(lambda i: _hollow(cuda, 128, 7 + 70 * i, np.float64))
+    batch64 = pair(lambda i: torch.stack([
+        _hollow(cuda, 256, 100 * i + s, np.float64) for s in range(16)]))
+    batch = pair(lambda i: torch.stack([
+        _hollow(cuda, 1024, 20 + i + s) for s in range(3)]))
+    spd = pair(lambda i: _spd(cuda, 512, 8 + 80 * i))
+    wc = pair(lambda i: torch.from_numpy(well_conditioned_matrix(
+        512, seed=9 + 90 * i)).to(cuda))
+    rhs = pair(lambda i: torch.from_numpy(rng.standard_normal(
+        (1024, 4)).astype(np.float32)).to(cuda))
+    rhs64 = pair(lambda i: rhs[i].double())
+    small = pair(lambda i: torch.stack([
+        _hollow(cuda, 128, 30 + 30 * i + s) for s in range(16)]))
+    small_rhs = pair(lambda i: torch.from_numpy(rng.standard_normal(
+        (16, 128, 3)).astype(np.float32)).to(cuda))
+    lu_s, perm_s, _ = lu._lu_factor_batched(small[0], pivot=True)
+    lu_fns = ("lu_factor_blocked", "lu_solve_fast")
+    routes = {
+        "blocked": (("blocked_inverse",), inverse, h),
+        "bf16 search": (("blocked_inverse",),
+                        lambda x: inverse(x, search_bf16=True), h),
+        "FP64 tier": (("blocked_inverse",), inverse, h64),
+        "FP64 logical tier 8192^2": (("blocked_inverse",), inverse, x8k),
+        "no-pivot FP64": (("blocked_inverse",),
+                          lambda x: inverse(x, pivot=False), dom),
+        "per-matrix batch": (("blocked_inverse",), inverse, batch),
+        "LU getri": (("lu_inverse_fast",),
+                     lambda x: inverse(x, method="lu"), h),
+        "FP64 LU getri (L3 panels)": (("lu_inverse_fast",),
+                                      lambda x: inverse(x, method="lu"), k64),
+        "LU solve": (lu_fns, lambda i: solve(h[i], rhs[i]), (0, 1)),
+        "FP64 LU solve (L3 panels)": (
+            lu_fns, lambda i: solve(k64[i], rhs64[i], method="lu"), (0, 1)),
+        "LU solve, refine_iters=2": (
+            lu_fns + ("refine_solve",),
+            lambda i: solve(h[i], rhs[i], method="lu", refine_iters=2),
+            (0, 1)),
+        "lu_inverse_refined": (
+            ("lu_inverse", "newton_schulz_refine"),
+            lambda x: lu_inverse_refined(x, iters=4,
+                                         residual_dtype=torch.float64), h64),
+        "potri": (("cholesky_inverse",), cholesky_inverse, spd),
+        "Cholesky solve": (("cholesky_factor", "cholesky_solve"),
+                           lambda i: solve(spd[i], rhs[i][:512],
+                                           method="cholesky"), (0, 1)),
+        "Newton-Schulz": (("newton_schulz_inverse",),
+                          lambda x: inverse(x, method="ns"), wc),
+        "spec": (("gauss_jordan_inverse",), inverse, small64),
+        "spec FP64 (16, 256^2)": (("gauss_jordan_inverse",), inverse,
+                                  batch64),
+        "LU spec getrf": (("lu_factor",), lu.lu_factor, small),
+        "LU spec getrs": (("lu_solve",),
+                          lambda b: lu.lu_solve(lu_s, perm_s, b), small_rhs),
+        "LU spec getri": (("lu_inverse",), lu.lu_inverse, small),
+        "LU spec solve": (("lu_solve_matrix",),
+                          lambda i: lu.lu_solve_matrix(small[i],
+                                                       small_rhs[i]), (0, 1)),
+        "slogdet (spec)": (("slogdet",), lu.slogdet, small),
+        "slogdet FP64 (L3 panels)": (("slogdet",), lu.slogdet, h64),
     }
+    return {name: (fns, lambda fn=fn, a=args[0]: fn(a),
+                   lambda fn=fn, b=args[1]: fn(b))
+            for name, (fns, fn, args) in routes.items()}
 
 
 def _leaves(out) -> list:
@@ -1002,19 +1726,45 @@ def _assert_bits(got, want) -> None:
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("route", [
-    "blocked", "bf16 search", "FP64 tier", "no-pivot FP64",
-    "per-matrix batch", "LU getri", "LU solve", "potri", "Cholesky solve",
-    "Newton-Schulz", "spec", "LU spec getrf", "LU spec getrs",
-    "LU spec getri", "LU spec solve", "slogdet FP64 (L3 panels)"])
+def _held_through_a_b_a(call_a, call_b) -> None:
+    """A, B, A: A's result, held, is unchanged by the replays for B and A,
+    and A's second result equals it; B's replay is B's eager bits (the
+    graph recomputes every step from its input) and differs from A's."""
+    from gpu_matrix_inversion_tpu_torch.utils import graphs
+    with graphs.disabled():
+        eager_b = call_b()
+    held = call_a()
+    keep = tuple(t.clone() for t in _leaves(held))
+    other = call_b()
+    again = call_a()
+    _assert_bits(held, keep)
+    _assert_bits(again, held)
+    _assert_bits(other, eager_b)
+    assert not all(torch.equal(o, k) for o, k in zip(_leaves(other), keep))
+
+
+ROUTES = [
+    "blocked", "bf16 search", "FP64 tier", "FP64 logical tier 8192^2",
+    "no-pivot FP64", "per-matrix batch", "LU getri",
+    "FP64 LU getri (L3 panels)", "LU solve", "FP64 LU solve (L3 panels)",
+    "LU solve, refine_iters=2", "lu_inverse_refined", "potri",
+    "Cholesky solve", "Newton-Schulz", "spec", "spec FP64 (16, 256^2)",
+    "LU spec getrf", "LU spec getrs", "LU spec getri", "LU spec solve",
+    "slogdet (spec)", "slogdet FP64 (L3 panels)"]
+
+
+@pytest.mark.parametrize("route", ROUTES)
 def test_replay_equals_eager(graph_cache, cuda, route):
     """Eager (graphs.disabled()), the first call (the capture) and a
-    replay give the same bits, outputs and ok; stats() shows one capture,
-    then replays; a replay runs no kernel wrapper; the graphs hold the
-    port's kernels as the wrappers counted them eagerly, and the
-    profiler's records show none more often, eager or replayed."""
+    replay give the same bits, outputs and ok; stats() shows one capture
+    of each compiled function the route calls, then replays; a replay runs
+    no kernel wrapper; the graphs hold the port's kernels as the wrappers
+    counted them eagerly, and the profiler's records show none more often,
+    eager or replayed. Then A, B, A leaves A's held result unchanged, and
+    check_deterministic (eager, then replays, poisoned between) holds."""
+    from gpu_matrix_inversion_tpu_torch.utils import determinism
     graphs = graph_cache
-    fn_name, call = _route_calls(cuda)[route]
+    fns, call, call_b = _route_calls(cuda)[route]
     with graphs.disabled():
         call()                          # builds the kernels, fills caches
         before = _counts()
@@ -1023,36 +1773,39 @@ def test_replay_equals_eager(graph_cache, cuda, route):
         assert _at_most(_records(call), eager_counts)
     assert graphs.stats() == {}
     first = call()
-    assert graphs.stats()[fn_name] == {"captures": 1, "replays": 1}
+    assert {fn: graphs.stats()[fn] for fn in fns} == {
+        fn: {"captures": 1, "replays": 1} for fn in fns}
     before = _counts()
     replayed = call()
     assert _grown(before) == {}
-    assert graphs.stats()[fn_name] == {"captures": 1, "replays": 2}
+    assert {fn: graphs.stats()[fn] for fn in fns} == {
+        fn: {"captures": 1, "replays": 2} for fn in fns}
     assert _nodes(graphs.cached()) == eager_counts
     assert _at_most(_records(call), eager_counts)
     assert _grown(before) == {}
     _assert_bits(first, eager)
     _assert_bits(replayed, eager)
+    _held_through_a_b_a(call, call_b)
+    assert determinism.check_deterministic(call, runs=3)[0]
 
 
-def test_lockstep_replay_equals_eager(graph_cache, cuda, monkeypatch):
+@pytest.mark.parametrize("bsz,n,k6", [(4, 1024, 8), (8, 2048, 32)])
+def test_lockstep_replay_equals_eager(graph_cache, cuda, monkeypatch, bsz, n,
+                                      k6):
     """The lockstep route (MATINV_LOCKSTEP=1, K6) replayed bit for bit as
     it runs eagerly, its graph holding K6's eager launches; the
     environment variable is part of the key, so the per-matrix graph is
-    another."""
+    another. A, B, A leaves A's held result unchanged."""
     from gpu_matrix_inversion_tpu_torch import inverse
-    from gpu_matrix_inversion_tpu_torch.utils.generators import (
-        hollow_random_matrix)
     graphs = graph_cache
-    x = torch.from_numpy(np.stack([hollow_random_matrix(1024, seed=40 + i)
-                                   for i in range(4)])).to(cuda)
+    x = torch.stack([_hollow(cuda, n, 40 + i) for i in range(bsz)])
     per_matrix = inverse(x)
     monkeypatch.setenv("MATINV_LOCKSTEP", "1")
     with graphs.disabled():
         before = _counts()
         eager = inverse(x)
         eager_counts = _grown(before)
-    assert eager_counts.get("K6") == 8
+    assert eager_counts.get("K6") == k6
     inverse(x)
     before = _counts()
     replayed = inverse(x)
@@ -1063,6 +1816,8 @@ def test_lockstep_replay_equals_eager(graph_cache, cuda, monkeypatch):
     assert _at_most(_records(lambda: inverse(x)), _as_records(eager_counts))
     _assert_bits(replayed, eager)
     _assert_bits(replayed, per_matrix)
+    x_b = x.flip(0).contiguous()
+    _held_through_a_b_a(lambda: inverse(x), lambda: inverse(x_b))
 
 
 def test_held_result_survives_later_replays(graph_cache, cuda):
@@ -1172,6 +1927,37 @@ def test_cache_keeps_the_graphs_used_last(graph_cache, cuda, monkeypatch):
     _assert_bits(twice(xs[1]), 2 * xs[1])          # dropped: captured again
     assert graphs.stats()["twice"] == {"captures": 4, "replays": 6}
     assert graphs.cached() == 2
+
+
+def test_the_sweep_sizes_keep_the_graphs_used_last(graph_cache, cuda):
+    """The sweep's sizes past the fused route (650 .. 2000 in steps of
+    10), one blocked_inverse graph a size: each ok, each captured once,
+    and the cache holds the MAX_GRAPHS used last."""
+    from gpu_matrix_inversion_tpu_torch import inverse
+    from gpu_matrix_inversion_tpu_torch.benchmarks.sweep import (
+        reference_sizes)
+    sizes = [n for n in reference_sizes(2000) if n > fused.FUSED_MAX_N]
+    for n in sizes:
+        x = torch.rand(n, n, device=cuda)
+        x.fill_diagonal_(0.0)
+        assert bool(inverse(x)[1]), n
+    assert graph_cache.cached() == min(len(sizes), graph_cache.MAX_GRAPHS)
+    assert graph_cache.stats()["blocked_inverse"]["captures"] == len(sizes)
+
+
+def test_sweep_rows_meet_their_gates(cuda):
+    """The sweep CLI's rows on the card: auto at 256 (fused), 1024 and
+    4096 (blocked) and potri at 4096 on SPD input, each row's normalized
+    residual (its eighth field) under the route's gate."""
+    import io
+    from gpu_matrix_inversion_tpu_torch.benchmarks.sweep import sweep_cuda
+    rows = io.StringIO()
+    sweep_cuda(0, rows, sizes=[256, 1024, 4096], method="auto")
+    sweep_cuda(0, rows, sizes=[4096], method="cholesky", spd=True)
+    lines = rows.getvalue().splitlines()
+    assert len(lines) == 4
+    for row, gate in zip(lines, (1e-5, 1e-6, 1e-6, 1e-6)):
+        assert float(row.split()[7]) <= gate, row
 
 
 def test_trace_of_a_replayed_route_shows_the_phase_ranges(graph_cache, cuda,
@@ -1288,15 +2074,20 @@ def _zero_sign_differences(x, y) -> int:
     return int((differ & ~((x == 0) & (y == 0))).sum())
 
 
-@pytest.mark.parametrize("bsz, n, dtype, pivot, kind", [
-    (1, 256, torch.float64, True, "normal"),      # the FP64 tier's block
-    (64, 256, torch.float64, True, "normal"),
-    (1, 511, torch.float64, True, "normal"),      # cluster of 16
+# L1 at B in {1, 64} x n in {8, 100, 256 (the FP64 tier's block), 511 (a
+# cluster of 16)} on its cluster branch and {640, 1000} on its grid
+# branch, fp64 and fp32, with and without pivoting; and on exact ties.
+L1_CASES = [(bsz, n, dtype, pivot, "normal")
+            for dtype in (torch.float64, torch.float32)
+            for n in (8, 100, 256, 511, 640, 1000)
+            for bsz in (1, 64) for pivot in (True, False)] + [
     (4, 100, torch.float32, False, "normal"),
-    (4, 256, torch.float64, True, "integers"),    # exact ties
-    (1, 640, torch.float32, True, "normal"),      # the grid branch
     (2, 1000, torch.float64, False, "normal"),
-])
+    *((4, n, dtype, True, "integers") for n in (256, 640)
+      for dtype in (torch.float64, torch.float32))]
+
+
+@pytest.mark.parametrize("bsz, n, dtype, pivot, kind", L1_CASES)
 def test_l1_matches_twin(cuda, bsz, n, dtype, pivot, kind):
     """L1 (csrc/gauss_jordan.cu) against gauss_jordan_twin on the card:
     the twin's bits up to the sign of a zero, ok equal (all true)."""
@@ -1315,26 +2106,29 @@ def test_l1_matches_twin(cuda, bsz, n, dtype, pivot, kind):
     assert _zero_sign_differences(inv, want) == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("n", [256, 640])
-def test_l1_ok_on_singular_and_nan_blocks(cuda, n):
+def test_l1_ok_on_singular_and_nan_blocks(cuda, n, dtype):
     """A regular, a singular (a zero row) and a NaN block: ok as the
     twin's, true, false, false."""
     from gpu_matrix_inversion_tpu_torch.ops import gauss_jordan
     a = np.random.default_rng(n).standard_normal((3, n, n))
     a[1, 3] = 0.0
     a[2, 7, 9] = np.nan
-    x = torch.from_numpy(a).to(cuda)
+    x = torch.from_numpy(a).to(dtype).to(cuda)
     ok = gauss_jordan._gauss_jordan_aug(x, pivot=True)[1]
     assert ok.tolist() == [True, False, False]
     assert torch.equal(ok, gauss_jordan.gauss_jordan_twin(x, pivot=True)[1])
 
 
-@pytest.mark.parametrize("m, b, dtype, pivot, mask", [
-    (512, 64, torch.float64, True, "half"),
-    (4096, 256, torch.float64, False, "half"),    # a later no-pivot panel
-    (8192, 256, torch.float64, True, "empty"),
-    (16384, 256, torch.float64, True, "half"),    # rows in a workspace
-    (65600, 32, torch.float32, True, "empty"),
+@pytest.mark.parametrize("mask", ["empty", "half"])
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("m, b, dtype", [
+    (512, 64, torch.float64),
+    (4096, 256, torch.float64),
+    (8192, 256, torch.float64),
+    (16384, 256, torch.float64),                  # rows in a workspace
+    (65600, 32, torch.float32),
 ])
 def test_l2_matches_twin(cuda, m, b, dtype, pivot, mask):
     """L2 (csrc/logical_panel.cu) against logical_panel_twin on the card:
@@ -1345,7 +2139,7 @@ def test_l2_matches_twin(cuda, m, b, dtype, pivot, mask):
     kb = 0
     if mask == "half" and pivot:
         used[torch.from_numpy(rng.permutation(m)[:m // 2]).to(cuda)] = 1
-    elif mask == "half":
+    elif mask == "half":                          # a later no-pivot panel
         used[:m // 2] = 1
         kb = m // 2
     got, ok = blocked._panel_pivots_logical(strip, used, kb, b=b,
@@ -1430,6 +2224,10 @@ def _lu_members(rng, bsz: int, n: int, kind: str) -> np.ndarray:
     (1, 640, torch.float32, True, "normal"),      # the grid branch
     (4, 600, torch.float64, True, "special"),
     (1, 2000, torch.float64, False, "dominant"),  # rows in a workspace
+    (1, 200, torch.float64, False, "dominant"),
+    (4, 200, torch.float64, True, "special"),
+    (4, 130, torch.float32, True, "special"),
+    (1, 4096, torch.float32, True, "normal"),     # lu_inverse_refined's
 ])
 def test_l4_matches_twin(cuda, bsz, n, dtype, pivot, kind):
     """L4 (csrc/gauss_jordan.cu, LU mode) against lu_factor_twin on the
@@ -1442,6 +2240,8 @@ def test_l4_matches_twin(cuda, bsz, n, dtype, pivot, kind):
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     if kind == "special":
         assert got[2].tolist() == [True, False, False, False]
+    elif kind != "integers":
+        assert bool(got[2].all())
 
 
 @pytest.mark.parametrize("bsz, n, k, dtype", [
@@ -1457,6 +2257,8 @@ def test_l4_matches_twin(cuda, bsz, n, dtype, pivot, kind):
     (4, 600, 70, torch.float32),      # special members, a cluster of 16
     (1, 1001, 3, torch.float32),      # rows off 16 bytes: scalar loads
     (1, 12320, 2, torch.float32),     # past a cluster's shared memory
+    (4, 200, 5, torch.float64),       # special members on a cluster
+    (4, 130, 33, torch.float32),      # special members, ragged
 ])
 def test_l5_matches_twin(cuda, bsz, n, k, dtype):
     """L5 (csrc/lu_solve.cu) against lu_solve_twin on the card: x's bits
@@ -1472,7 +2274,13 @@ def test_l5_matches_twin(cuda, bsz, n, k, dtype):
     want = lu.lu_solve_twin(fac, perm, rhs)
     assert _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
     if kind == "special":
-        assert got[1].tolist() == [True, False, False, False]
+        # The infinite member's factor may hold its infinity as a pivot
+        # with zero multipliers below it: x is then finite and ok true, in
+        # the twin as in the kernel.
+        assert got[1].tolist()[:3] == [True, False, False]
+        assert bool(got[1][3]) == bool(torch.isfinite(got[0][3]).all())
+    else:
+        assert bool(got[1].all())
 
 
 @pytest.mark.parametrize("bsz, n, k, dtype, path", [
@@ -1504,8 +2312,11 @@ def test_l5_takes_the_planned_path(cuda, bsz, n, k, dtype, path):
 @pytest.mark.parametrize("m, b, dtype, pivot, mask", [
     (4096, 128, torch.float64, True, "empty"),    # FP64 getrf 4096^2
     (4096, 128, torch.float64, True, "prior"),
+    (1024, 128, torch.float64, True, "empty"),    # slogdet FP64 1024^2
     (1024, 128, torch.float64, False, "later"),   # no pivoting
     (520, 64, torch.float64, True, "prior"),
+    (200, 64, torch.float64, True, "prior"),      # ragged
+    (130, 32, torch.float32, True, "empty"),
     (16384, 256, torch.float64, True, "prior"),   # rows in a workspace
     (65600, 32, torch.float32, True, "empty"),
     (1024, 128, torch.float64, True, "inf"),

@@ -4,7 +4,7 @@ plus ``cholesky``).
 
 On the CPU the perturbation between runs is the reference's dummy NaN
 computation; the on-card poisoning (allocator and shared memory) is
-exercised by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``. Results
+exercised by ``tests/test_torch_cuda.py``. Results
 compare exactly: both functions return the same ``(identical, max_diff)``
 on the same output sequence.
 """

@@ -180,8 +180,8 @@ def _env_reads(tree):
 def _reassigned_names() -> set:
     """Module-level names that code changes at run time: attribute
     assignments (``mod.NAME = ...``), ``setattr(mod, "NAME", ...)`` and
-    ``global NAME`` in the scripts, probes, port tests and the package."""
-    files = ([REPO / "chip_smoke.py"] + sorted((REPO / "probes").glob("*.py"))
+    ``global NAME`` in the probes, port tests and the package."""
+    files = (sorted((REPO / "probes").glob("*.py"))
              + sorted((REPO / "tests").glob("test_torch_*.py"))
              + sorted(PKG.rglob("*.py")))
     names = set()
@@ -254,7 +254,7 @@ def test_counted_wrappers_cover_every_launch_counter():
                 "if not cuda_build.capturing():   # a graph's record is no "
                 "launch"], name
     assert wrappers == 12
-    for path in [REPO / "chip_smoke.py"] + sorted(PKG.rglob("*.py")):
+    for path in sorted(PKG.rglob("*.py")):
         assert not re.search(r"\.launches \+= (?!1\b)", path.read_text()), (
             path)
 

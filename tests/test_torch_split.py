@@ -137,7 +137,7 @@ def test_pivot_search_shared_memory_serves_the_gates(n):
                 assert geo.wp_shared == (elt == 4 or m <= 55000)
 
 
-# The shapes chip_smoke.py and the on-card tests give K2 (fp32) and K3.
+# The shapes the on-card tests give K2 (fp32) and K3: those the gates give.
 GATE_SHAPES = [(256, 64, 4), (1024, 128, 4), (2048, 128, 4), (4096, 128, 4),
                (8192, 128, 4), (16384, 64, 4), (4096, 128, 2),
                (4096, 256, 4), (20032, 64, 2), (65536, 32, 2)]
