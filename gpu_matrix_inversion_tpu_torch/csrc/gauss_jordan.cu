@@ -1,8 +1,8 @@
 // L1 and L4: the step loop on whole (B, n, n) fp64 or fp32 matrices, with
 // or without pivoting, in two modes: L1 the Gauss-Jordan inverse, L4 the
-// spec getrf. The two share the geometry, the kernels' bodies and the
-// launch; they differ in run_steps' LU flag (gj_loop.cuh) and in what the
-// store writes.
+// spec getrf (to n = 511; lu_factor.cu past it). The two share the
+// geometry, the kernels' bodies and the launch; they differ in run_steps'
+// LU flag (gj_loop.cuh) and in what the store writes.
 //
 // L1, the Gauss-Jordan inverse.
 //
@@ -65,20 +65,13 @@
 // does), f deposited in column r. ok = every pivot nonzero and the factor
 // finite.
 //
-// What bounds it on an H100: 2 n^3 / 3 operations (45.8 GFLOP at n = 4096:
-// 0.68 ms at the FP32 peak), or the matrix read and written once; the
-// chain's latency at small n, the update's traffic at large n. On the grid
-// branch past n ~ 1900 (fp64) the rows live in the device workspace
-// (n = 4096 fp32: 64 MB, past the 50 MB L2). Measured on an H100 80GB HBM3
-// at 700 W (CUDA events; probes/loop_phases.py for a step): ~0.63 ms at
-// (64, 128^2) fp32 (~5 us a step; torch.linalg.lu_factor 1.6 to 2.5 ms
-// over four runs), ~0.77 ms at (1, 200^2) fp64, ~178 ms at (1, 4096^2)
-// fp32 on the grid (~44 us a step, three quarters of its cycles in the
-// update): every step reads and writes the workspace's columns > r of
-// every row from device memory.
-// Skipping the finished rows (exact but where a row holds a -0 or the
-// pivot row is not finite) would save a third of that traffic; a blocked
-// update, 32 steps a pass with each element's order kept, most of it.
+// What bounds it on an H100 at these orders: the chain's latency.
+// Measured on an H100 80GB HBM3 at 700 W (CUDA events; probes/
+// loop_phases.py for a step): ~0.63 ms at (64, 128^2) fp32 (~5 us a step;
+// torch.linalg.lu_factor 1.6 to 2.5 ms over four runs), ~0.77 ms at
+// (1, 200^2) fp64. L4 runs here on the cluster branch only: past n = 511
+// it is the blocked getrf of lu_factor.cu (lu_factor_grid_kernel_blocked,
+// a name the profiler's readers match as the grid branch's).
 #include <cuda_runtime.h>
 
 #include "gj_loop.cuh"
@@ -300,25 +293,9 @@ gauss_jordan_grid_kernel(const T* __restrict__ a, T* __restrict__ out,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lu_factor_grid_kernel(const T* __restrict__ a, T* __restrict__ out,
-                      long long* __restrict__ perm, int* __restrict__ ok_out,
-                      T* work, char* props, unsigned* bar, int* flags,
-                      int batch, int n, int pivot, int rows_shared) {
-  grid_body<T, true>(a, out, perm, ok_out, work, props, bar, flags, batch, n,
-                     pivot, rows_shared);
-}
-
-template <typename T>
 const void* cluster_kernel(int lu) {
   return lu ? reinterpret_cast<const void*>(&lu_factor_cluster_kernel<T>)
             : reinterpret_cast<const void*>(&gauss_jordan_cluster_kernel<T>);
-}
-
-template <typename T>
-const void* grid_kernel(int lu) {
-  return lu ? reinterpret_cast<const void*>(&lu_factor_grid_kernel<T>)
-            : reinterpret_cast<const void*>(&gauss_jordan_grid_kernel<T>);
 }
 
 template <typename T>
@@ -344,13 +321,15 @@ int launch(const void* a, void* out, void* perm, int* ok, void* work,
     return cudaGetLastError();
   }
   const int rows_per = ctas > 0 ? (n + ctas - 1) / ctas : 0;
-  if (batch < 1 || n < 1 || ctas < 1 || props == nullptr || bar == nullptr ||
-      flags == nullptr || (!rows_shared && work == nullptr) || smem < 0 ||
+  if (lu || batch < 1 || n < 1 || ctas < 1 || props == nullptr ||
+      bar == nullptr || flags == nullptr ||
+      (!rows_shared && work == nullptr) || smem < 0 ||
       (size_t)smem > kMaxShared ||
       (size_t)smem <
           smem_bytes(rows_per, n, 3 * n, sizeof(T), rows_shared, false))
     return cudaErrorInvalidValue;
-  const void* kernel = grid_kernel<T>(lu);
+  const void* kernel = reinterpret_cast<const void*>(
+      &gauss_jordan_grid_kernel<T>);
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -371,8 +350,8 @@ int launch(const void* a, void* out, void* perm, int* ok, void* work,
 // the packed factor (lu != 0, L4); perm: (batch, n) int64, L4's (unused by
 // L1); ok: (batch,) int32; fp64 != 0 means double, else float. branch 0:
 // one cluster of `ctas` CTAs per matrix (n <= 511; work, props, bar and
-// flags unused); branch 1: a persistent grid of `ctas` CTAs, one matrix at
-// a time, with work ((n, n) values, unused when rows_shared), props
+// flags unused); branch 1 (L1 only): a persistent grid of `ctas` CTAs, one
+// matrix at a time, with work ((n, n) values, unused when rows_shared), props
 // ((2, ctas) proposals), bar (one unsigned, zero) and flags (ctas ints),
 // launched cooperatively. smem: the bytes of shared memory a CTA gets (the
 // wrapper's geometry, ops/gauss_jordan.py loop_geometry). Returns the

@@ -160,8 +160,9 @@ _plans: dict = {}
 def loop_plan(n: int, batch: int, dtype: torch.dtype, device, *,
               lu: bool = False):
     """``(geometry, clusters)``: the :class:`LoopGeometry` L1 (or, with
-    ``lu``, L4, the spec getrf of ``ops/lu.py``, which shares its kernels'
-    bodies) launches with on ``device`` and, on the cluster branch, how
+    ``lu``, L4's cluster branch, the spec getrf of ``ops/lu.py`` to
+    n = 511, which shares its kernels' bodies) launches with on ``device``
+    and, on the cluster branch, how
     many such clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters`` of that mode's cluster kernel; None
     on the grid branch, whose cooperative launch the runtime admits or
@@ -190,11 +191,11 @@ def loop_plan(n: int, batch: int, dtype: torch.dtype, device, *,
 
 
 def launch_matrix_loop(a: torch.Tensor, *, lu: bool, pivot: bool):
-    """Launch L1 (``lu`` False: the inverse) or L4 (``lu`` True: the
-    packed factor and its int64 perm) on a contiguous fp32 or fp64
-    (B, n, n) CUDA tensor, at :func:`loop_plan`'s geometry; returns
-    ``(out, perm or None, ok)`` with ``ok`` int32. Counts nothing: each
-    wrapper counts its own launches."""
+    """Launch L1 (``lu`` False: the inverse) or L4's cluster branch (``lu``
+    True, n <= 511: the packed factor and its int64 perm) on a contiguous
+    fp32 or fp64 (B, n, n) CUDA tensor, at :func:`loop_plan`'s geometry;
+    returns ``(out, perm or None, ok)`` with ``ok`` int32. Counts nothing:
+    each wrapper counts its own launches."""
     bsz, n, _ = a.shape
     dev = a.device
     geo, _ = loop_plan(n, bsz, a.dtype, dev, lu=lu)

@@ -10,7 +10,8 @@ row perm[i]).
 
 - The spec (:func:`lu_factor`, :func:`lu_solve`, :func:`lu_inverse`): the
   JAX package runs its loops as on-device ``lax.fori_loop`` loops. Here the
-  getrf loop is kernel L4 (``csrc/gauss_jordan.cu``, wrapper
+  getrf loop is kernel L4 (``csrc/gauss_jordan.cu`` to n = 511, the
+  blocked ``csrc/lu_factor.cu`` past it; wrapper
   :func:`_lu_factor_batched`) and the getrs loops kernel L5
   (``csrc/lu_solve.cu``, :func:`_lu_solve_batched`); a CPU tensor runs
   their plain twins (:func:`lu_factor_twin`, :func:`lu_solve_twin`), one
@@ -51,7 +52,8 @@ from gpu_matrix_inversion_tpu_torch.ops.blocked import (_default_group_size,
 from gpu_matrix_inversion_tpu_torch.ops.fused import (H100_SMS, SHARED_BYTES,
                                                       _fms)
 from gpu_matrix_inversion_tpu_torch.ops.gauss_jordan import (
-    grid_props_bytes, launch_matrix_loop, sm_count)
+    ONCHIP_MAX_N, grid_props_bytes, launch_matrix_loop, loop_geometry,
+    sm_count)
 from gpu_matrix_inversion_tpu_torch.utils import cuda_build
 from gpu_matrix_inversion_tpu_torch.utils.graphs import compiled
 from gpu_matrix_inversion_tpu_torch.utils.precision import matmul_precision
@@ -135,16 +137,104 @@ def _device_index(t: torch.Tensor) -> int:
     return torch.cuda.current_device() if index is None else index
 
 
+# L4's blocked path (csrc/lu_factor.cu): a persistent grid, a CTA per
+# LU_FACTOR_ROWS rows up to one an SM, panels of LU_FACTOR_PANEL columns.
+LU_FACTOR_PANEL = 64
+LU_FACTOR_ROWS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class LuFactorPlan:
+    """How L4 runs a getrf: ``path`` "cluster" (a cluster of ``ctas`` CTAs
+    a matrix, ``csrc/gauss_jordan.cu``'s LU mode) or "blocked" (a
+    persistent grid of ``ctas`` CTAs of ``rows`` rows each, panels of
+    ``panel`` columns, ``csrc/lu_factor.cu``); ``smem`` bytes of shared
+    memory a CTA."""
+    path: str
+    ctas: int
+    rows: int
+    panel: int
+    smem: int
+
+
+def lu_factor_smem(n: int, rows: int, panel: int, itemsize: int) -> int:
+    """Shared memory of a CTA of L4's blocked path
+    (``blocked_smem_bytes`` in ``csrc/lu_factor.cu``): the places (n
+    ints), its rows' places and its list of active rows (``rows`` ints
+    each), its rows' panel columns (a row padded by one value), the pivot
+    rows' panel values, two staged chunks of the U rows (``panel`` rows of
+    512 bytes), the reduction scratch and 16 ints."""
+    a16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    return (a16(4 * n) + 2 * a16(4 * rows)
+            + a16(rows * (panel + 1) * itemsize)
+            + a16(panel * panel * itemsize) + 2 * panel * 512 + 8 * 16 + 64)
+
+
+def lu_factor_plan(batch: int, n: int, itemsize: int,
+                   sms: int = H100_SMS) -> LuFactorPlan:
+    """L4's path for a (batch, n, n) getrf in a dtype of ``itemsize``
+    bytes, by shape alone.
+
+    n <= 511: the cluster branch at L1's geometry
+    (``gauss_jordan.loop_geometry``). Past it the blocked path: a CTA per
+    LU_FACTOR_ROWS rows, at most one an SM, no CTA without rows
+    ((1, 4096^2): 128 CTAs of 32 rows), one matrix at a time. Its places
+    (n ints a CTA) bound n: past 16,720 in fp64 and 24,912 in fp32 a CTA's
+    shared memory is too small, and a ``ValueError`` says so (the step
+    loop it replaced, with three maps and a row of n values a CTA, stopped
+    at ~11,600 and ~14,500)."""
+    if n <= ONCHIP_MAX_N:
+        geo = loop_geometry(n, batch, itemsize, sms)
+        return LuFactorPlan("cluster", geo.ctas, geo.rows, 0, geo.smem)
+    g = min(sms, -(-n // LU_FACTOR_ROWS))
+    rows = -(-n // g)
+    g = -(-n // rows)
+    smem = lu_factor_smem(n, rows, LU_FACTOR_PANEL, itemsize)
+    if smem > SHARED_BYTES:
+        raise ValueError(f"L4 at n={n}: a CTA of the blocked path needs "
+                         f"{smem} bytes of shared memory")
+    return LuFactorPlan("blocked", g, rows, LU_FACTOR_PANEL, smem)
+
+
+def _launch_blocked(a: torch.Tensor, plan: LuFactorPlan, pivot: bool):
+    """L4's blocked path on a contiguous fp32 or fp64 (B, n, n) CUDA
+    tensor; ``(lu, perm, ok)`` with ``ok`` int32."""
+    bsz, n, _ = a.shape
+    dev = a.device
+    lu = torch.empty_like(a)
+    perm = torch.empty((bsz, n), dtype=torch.long, device=dev)
+    ok = torch.empty(bsz, dtype=torch.int32, device=dev)
+    work = torch.empty((n, n), dtype=a.dtype, device=dev)
+    # Three slots of a proposal a CTA: 16-byte words, 8 bytes of data
+    # each: the header's (row and place, and four values: fp32 two words,
+    # fp64 four) and the panel row's.
+    head = 3 if a.element_size() == 4 else 5
+    words = head + plan.panel * a.element_size() // 8
+    props = torch.empty((3, plan.ctas, words, 4), dtype=torch.int32,
+                        device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    flags = torch.empty(plan.ctas, dtype=torch.int32, device=dev)
+    marks = torch.empty(n, dtype=torch.int32, device=dev)
+    err = cuda_build.load().matinv_lu_factor_blocked(
+        a.data_ptr(), lu.data_ptr(), perm.data_ptr(), ok.data_ptr(),
+        work.data_ptr(), props.data_ptr(), bar.data_ptr(), flags.data_ptr(),
+        marks.data_ptr(), bsz, n, int(a.dtype == torch.float64), int(pivot),
+        plan.ctas, plan.panel, plan.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "L4 lu_factor")
+    return lu, perm, ok
+
+
 def _lu_factor_batched(a: torch.Tensor, *, pivot: bool):
-    """L4 (``csrc/gauss_jordan.cu``, L1's kernels in their LU mode):
-    partial-pivoted LU of (B, n, n) with row swaps; ``(lu, perm, ok)`` of
-    :func:`lu_factor_twin` bit for bit, perm int64.
+    """L4: partial-pivoted LU of (B, n, n) with row swaps; ``(lu, perm,
+    ok)`` of :func:`lu_factor_twin` bit for bit, perm int64.
 
     A CPU tensor runs the twin. A CUDA tensor launches L4 in fp64 or fp32
-    through L1's launcher (``gauss_jordan.launch_matrix_loop``: a cluster
-    per matrix to n = 511, a persistent grid past it); bf16 and fp16 are
-    computed in fp32 and the factor returned in the input's dtype, as L1
-    does."""
+    on the path :func:`lu_factor_plan` chooses by shape: a cluster per
+    matrix to n = 511 (``csrc/gauss_jordan.cu`` through L1's launcher,
+    ``gauss_jordan.launch_matrix_loop``), past it the blocked getrf on a
+    persistent grid (``csrc/lu_factor.cu``); bf16 and fp16 are computed in
+    fp32 and the factor returned in the input's dtype, as L1 does."""
     if a.ndim != 3 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"L4 takes (B, n, n), got {tuple(a.shape)}")
     if a.device.type == "cpu":
@@ -157,13 +247,28 @@ def _lu_factor_batched(a: torch.Tensor, *, pivot: bool):
         return lu.to(a.dtype), perm, ok
     if a.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"L4 takes float32 or float64, got {a.dtype}")
-    lu, perm, ok = launch_matrix_loop(a.contiguous(), lu=True, pivot=pivot)
+    bsz, n, _ = a.shape
+    plan = lu_factor_plan(bsz, n, a.element_size(),
+                          sm_count(_device_index(a)))
+    if plan.path == "blocked":
+        lu, perm, ok = _launch_blocked(a.contiguous(), plan, pivot)
+    else:
+        lu, perm, ok = launch_matrix_loop(a.contiguous(), lu=True,
+                                          pivot=pivot)
     if not cuda_build.capturing():   # a graph's record is no launch
         _lu_factor_batched.launches += 1
+        if plan.path == "blocked":
+            _lu_factor_batched.blocked_launches += 1
+        else:
+            _lu_factor_batched.cluster_launches += 1
     return lu, perm, ok != 0
 
 
+# launches: every launch; blocked_launches and cluster_launches: those of
+# each path.
 _lu_factor_batched.launches = 0
+_lu_factor_batched.blocked_launches = 0
+_lu_factor_batched.cluster_launches = 0
 
 
 @compiled

@@ -72,6 +72,10 @@ SIGNATURES = {
     # kb, fp64, pivot, ctas, rows_shared, smem, stream
     "matinv_lu_panel": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P),
+    # a, out, perm, ok, work, props, bar, flags, marks, batch, n, fp64,
+    # pivot, ctas, panel, smem, stream
+    "matinv_lu_factor_blocked": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _I, _P),
     # lu, perm, b, x, flags, work, batch, n, k, kc, cluster, fp64, stream
     "matinv_lu_solve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P),

@@ -8,8 +8,9 @@ Copies ``csrc/gj_loop.cuh``, ``csrc/gauss_jordan.cu`` (L1 and L4),
 (``clock64`` laps by thread 0 of member 0 of each group, summed over the
 launch into a device array), builds one library per kernel with ``nvcc``,
 runs L1 to L4 through their C entry points at the routes' shapes (L3 at
-FP64 getrf 4096^2's panel, L4 at the (64, 128^2) fp32 batch and
-lu_inverse_refined's (1, 4096^2)) and the geometry the wrappers choose,
+FP64 getrf 4096^2's panel, L4's cluster branch at the (64, 128^2) fp32
+batch; past n = 511 L4 is the blocked csrc/lu_factor.cu, no step loop,
+timed by probes/l5_paths.py) and the geometry the wrappers choose,
 and prints for each:
 ms per launch by CUDA events (the timers cost a little) and the cycles of
 each phase per step. Phases: ``barrier`` (the group barrier: the cluster's,
@@ -195,27 +196,19 @@ def main() -> None:
             assert err == 0, err
         return geo, run, b
 
-    def l4(x):
+    def l4(x):  # the cluster branch (n <= 511)
         bsz, n, _ = x.shape
         fp64 = x.dtype == torch.float64
         geo = gauss_jordan.loop_geometry(n, bsz, x.element_size(), sms)
         fac = torch.empty_like(x)
         perm = torch.empty((bsz, n), dtype=torch.long, device=dev)
         ok = torch.empty(bsz, dtype=torch.int32, device=dev)
-        grid = geo.branch == "grid"
-        work = (torch.empty((n, n), dtype=x.dtype, device=dev)
-                if grid and not geo.rows_shared else None)
-        props = torch.empty(gauss_jordan.grid_props_bytes(
-            geo.ctas, n, x.element_size()), dtype=torch.uint8, device=dev)
-        flags = torch.empty(geo.ctas, dtype=torch.int32, device=dev)
 
         def run():
-            bar = torch.zeros(1, dtype=torch.int32, device=dev)
             err = libs["gauss_jordan"].matinv_gauss_jordan(
                 x.data_ptr(), fac.data_ptr(), perm.data_ptr(), ok.data_ptr(),
-                None if work is None else work.data_ptr(), props.data_ptr(),
-                bar.data_ptr(), flags.data_ptr(), bsz, n, int(fp64), 1, 1,
-                int(grid), geo.ctas, int(geo.rows_shared), geo.smem, stream)
+                None, None, None, None, bsz, n, int(fp64), 1, 1, 0, geo.ctas,
+                1, geo.smem, stream)
             assert err == 0, err
         return geo, run, bsz * n
 
@@ -228,7 +221,7 @@ def main() -> None:
     cases += [("L3 (4096, 128) fp64", "lu_panel", l3(4096, 128))]
     cases += [(f"L4 ({bsz}, {n}^2) fp32", "gauss_jordan", l4(torch.from_numpy(
         rng.standard_normal((bsz, n, n)).astype(np.float32)).to(dev)))
-              for bsz, n in ((64, 128), (1, 4096))]
+              for bsz, n in ((64, 128),)]
     for label, name, (geo, run, steps) in cases:
         ms = _events_ms(run, 5)
         torch.cuda.synchronize()

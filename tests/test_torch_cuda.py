@@ -2201,18 +2201,44 @@ def _same_bits(x, y) -> bool:
 
 def _lu_members(rng, bsz: int, n: int, kind: str) -> np.ndarray:
     """normal; dominant (no pivoting needed); integers in [-3, 3] (exact
-    ties); special: a regular member, a singular one (a zero row), one
-    holding a NaN and one holding an infinity."""
-    if kind == "integers":
-        return rng.integers(-3, 4, (bsz, n, n)).astype(np.float64)
+    ties); signed_zeros: integers in [-3, 3] with every zero -0.0 and -0.0
+    planted at every third place above the diagonal, beside negative
+    values, so that -0 reaches the U rows of later pivots; special: a
+    regular member, a singular one (a zero row), one holding a NaN and one
+    holding an infinity (as many of these as the batch holds)."""
+    if kind in ("integers", "signed_zeros"):
+        a = rng.integers(-3, 4, (bsz, n, n)).astype(np.float64)
+        if kind == "signed_zeros":
+            upper = np.triu(np.ones((n, n), dtype=bool), 1)
+            upper &= (np.arange(n)[None, :] % 3) == 0
+            a[:, upper] = -0.0
+            a[a == 0] = -0.0
+        return a
     a = rng.standard_normal((bsz, n, n))
     if kind == "dominant":
         a += n * np.eye(n)
     if kind == "special":
-        a[1, 3] = 0.0
-        a[2, n // 2, n // 3] = np.nan
-        a[3, n // 3, n // 2] = np.inf
+        for i, (row, col, value) in enumerate(
+                ((3, slice(None), 0.0), (n // 2, n // 3, np.nan),
+                 (n // 3, n // 2, np.inf))[:bsz - 1], start=1):
+            a[i, row, col] = value
     return a
+
+
+def _largest_blocked_n(itemsize: int) -> int:
+    """The largest n that lu_factor_plan sends to L4's blocked path."""
+    lo, hi = 512, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        try:
+            lu.lu_factor_plan(1, mid, itemsize)
+            lo = mid
+        except ValueError:
+            hi = mid - 1
+    return lo
+
+
+L4_FP64_MAX_N = _largest_blocked_n(8)
 
 
 @pytest.mark.parametrize("bsz, n, dtype, pivot, kind", [
@@ -2228,10 +2254,19 @@ def _lu_members(rng, bsz: int, n: int, kind: str) -> np.ndarray:
     (4, 200, torch.float64, True, "special"),
     (4, 130, torch.float32, True, "special"),
     (1, 4096, torch.float32, True, "normal"),     # lu_inverse_refined's
+    (1, 640, torch.float32, True, "integers"),    # ties on the blocked path
+    (1, 640, torch.float32, True, "signed_zeros"),
+    (2, 600, torch.float64, True, "signed_zeros"),
+    (1, 700, torch.float32, False, "signed_zeros"),
+    (1, 512, torch.float32, True, "normal"),      # the smallest blocked n
+    (1, 1000, torch.float32, True, "normal"),     # n off the panel width
+    (3, 600, torch.float32, True, "special"),     # a batch of three
+    (1, L4_FP64_MAX_N, torch.float64, True, "normal"),  # fp64's largest
 ])
 def test_l4_matches_twin(cuda, bsz, n, dtype, pivot, kind):
-    """L4 (csrc/gauss_jordan.cu, LU mode) against lu_factor_twin on the
-    card: the factor's bits, perm and ok identical."""
+    """L4 (csrc/gauss_jordan.cu's LU mode to n = 511, the blocked
+    csrc/lu_factor.cu past it) against lu_factor_twin on the card: the
+    factor's bits, perm and ok identical."""
     a = _lu_members(np.random.default_rng(n + bsz), bsz, n, kind)
     x = torch.from_numpy(a).to(dtype).to(cuda)
     got = lu._lu_factor_batched(x, pivot=pivot)
@@ -2239,9 +2274,35 @@ def test_l4_matches_twin(cuda, bsz, n, dtype, pivot, kind):
     assert _same_bits(got[0], want[0])
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     if kind == "special":
-        assert got[2].tolist() == [True, False, False, False]
-    elif kind != "integers":
+        assert got[2].tolist() == [True, False, False, False][:bsz]
+    elif kind not in ("integers", "signed_zeros"):
         assert bool(got[2].all())
+    if kind == "signed_zeros":     # the -0 of the input reach the factor
+        assert bool((torch.signbit(want[0]) & (want[0] == 0)).any())
+
+
+@pytest.mark.parametrize("bsz, n, dtype, path", [
+    (1, 4096, torch.float32, "blocked"),    # lu_inverse_refined's
+    (64, 128, torch.float32, "cluster"),    # the small-n LU batch
+    (1, 511, torch.float64, "cluster"),     # the cluster branch's largest
+    (2, 512, torch.float64, "blocked"),
+])
+def test_l4_takes_the_planned_path(cuda, bsz, n, dtype, path):
+    """Each eager getrf launches L4 once, on the path lu_factor_plan names
+    for its shape: that path's counter grows by one, the other's not at
+    all."""
+    plan = lu.lu_factor_plan(bsz, n, torch.finfo(dtype).bits // 8)
+    assert plan.path == path
+    x = torch.eye(n, dtype=dtype, device=cuda).expand(bsz, n, n) * 2
+    before = (lu._lu_factor_batched.launches,
+              lu._lu_factor_batched.blocked_launches,
+              lu._lu_factor_batched.cluster_launches)
+    _, _, ok = lu._lu_factor_batched(x, pivot=True)
+    assert bool(ok.all())
+    grown = (lu._lu_factor_batched.launches - before[0],
+             lu._lu_factor_batched.blocked_launches - before[1],
+             lu._lu_factor_batched.cluster_launches - before[2])
+    assert grown == ((1, 1, 0) if path == "blocked" else (1, 0, 1))
 
 
 @pytest.mark.parametrize("bsz, n, k, dtype", [

@@ -257,6 +257,23 @@ def test_counted_wrappers_cover_every_launch_counter():
     for path in sorted(PKG.rglob("*.py")):
         assert not re.search(r"\.launches \+= (?!1\b)", path.read_text()), (
             path)
+    # A path's counter (L4's blocked_launches, L5's cluster_launches, ...)
+    # counts inside its wrapper's guard, one at a time.
+    paths = 0
+    for path in sorted((PKG / "ops").glob("*.py")):
+        text = path.read_text()
+        for name, counter in re.findall(r"^(\w+)\.(\w+_launches) = 0$",
+                                        text, re.M):
+            paths += 1
+            adds = re.findall(rf"^( *){name}\.{counter} \+= (.*)$", text,
+                              re.M)
+            assert [add for _, add in adds] == ["1"], (name, counter)
+            guard = text.rindex(
+                "if not cuda_build.capturing():   # a graph's record is no "
+                "launch", 0, text.index(f"{name}.{counter} +="))
+            body = text[guard:text.index(f"{name}.{counter} +=")]
+            assert f"{name}.launches += 1" in body, (name, counter)
+    assert paths == 4
 
 
 def _cuda_sig(*shapes, devices=None):

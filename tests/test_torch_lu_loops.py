@@ -283,12 +283,49 @@ def test_l5_plan(batch, n, k, itemsize, cluster, kc, ctas):
     (4096, 1, 4, "grid", 128, False),     # lu_inverse_refined at 4096^2
 ])
 def test_l4_geometry(n, batch, itemsize, branch, ctas, shared):
-    """L4 runs on L1's geometry: every CTA holds rows and fits one block's
-    shared memory."""
+    """L1's geometry, which L4's cluster branch runs on to n = 511 (past
+    it L4 takes lu_factor_plan's blocked path): every CTA holds rows and
+    fits one block's shared memory."""
     geo = tgj.loop_geometry(n, batch, itemsize)
     assert (geo.branch, geo.ctas, geo.rows_shared) == (branch, ctas, shared)
     assert (geo.ctas - 1) * geo.rows < n <= geo.ctas * geo.rows
     assert geo.smem <= tgj.SHARED_BYTES
+
+
+@pytest.mark.parametrize("batch, n, itemsize, path, ctas, rows", [
+    (1, 4096, 4, "blocked", 128, 32),     # lu_inverse_refined at 4096^2
+    (1, 512, 4, "blocked", 16, 32),       # the smallest blocked n
+    (4, 600, 8, "blocked", 19, 32),
+    (1, 1000, 4, "blocked", 32, 32),
+    (1, 16000, 8, "blocked", 132, 122),   # past a CTA an SM: more rows
+    (1, 16720, 8, "blocked", 132, 127),   # fp64's largest
+    (1, 24912, 4, "blocked", 132, 189),   # fp32's largest
+    (64, 128, 4, "cluster", 2, 64),       # inverse(method="lu") batches
+    (1, 511, 8, "cluster", 16, 32),       # the cluster branch's largest
+])
+def test_l4_plan(batch, n, itemsize, path, ctas, rows):
+    """L4's path by shape: L1's cluster geometry to n = 511, past it the
+    blocked getrf on a grid of a CTA per 32 rows, at most one an SM, no
+    CTA without rows, panels of 64 columns, its shared memory within one
+    block's."""
+    plan = tlu.lu_factor_plan(batch, n, itemsize)
+    assert (plan.path, plan.ctas, plan.rows) == (path, ctas, rows)
+    assert (plan.ctas - 1) * plan.rows < n <= plan.ctas * plan.rows
+    assert plan.smem <= tgj.SHARED_BYTES
+    if path == "blocked":
+        assert plan.panel == tlu.LU_FACTOR_PANEL == 64
+        assert plan.smem == tlu.lu_factor_smem(n, rows, 64, itemsize)
+    else:
+        geo = tgj.loop_geometry(n, batch, itemsize)
+        assert (geo.branch, geo.ctas, geo.smem) == (path, ctas, plan.smem)
+
+
+@pytest.mark.parametrize("n, itemsize", [(16721, 8), (24913, 4)])
+def test_l4_plan_refuses_past_its_shared_memory(n, itemsize):
+    """Past the largest order whose places fit a CTA's shared memory the
+    plan raises, naming the bytes, and launches nothing."""
+    with pytest.raises(ValueError, match="L4 at n="):
+        tlu.lu_factor_plan(1, n, itemsize)
 
 
 @pytest.mark.parametrize("m, b, itemsize, ctas, rows, shared", [
